@@ -11,11 +11,14 @@ failure:
 2. build: compile mixedfem_tpu_torch/csrc/kernels.cu with nvcc for sm_90a.
 3. kernels: hold K1 (element_apply), K2 (segment_sum at the widths the step
    uses: 3, 9, the coarse restriction's 6 and the coarse Galerkin sums'
-   36) and K3 (contract_G_Gw) to
-   their plain PyTorch versions at the 100k-tet shapes, in float32 (to 1e-5
-   of the output's scale: the kernels sum in another order) and float64 (to
-   1e-12); time each kernel, its plain version and the one PyTorch call
-   that computes the same function where there is one.
+   36), K3 (contract_G_Gw) and K4 (banded_sum at 3 and 9, on the banded
+   beam's plan, W=896, and on the scene's plan of phase 6, whose vertex
+   ids are unordered, W=22,400) to their plain PyTorch versions at the
+   100k-tet shapes, in float32 (to 1e-5 of the output's scale: the kernels
+   sum in another order) and float64 (to 1e-12); time each kernel, its
+   plain version and the one PyTorch call that computes the same function
+   where there is one, and K4's rows also through K2 over the mesh's
+   incidence plan (the same vertex sum).
 4. main path: the bench's 100k-tet beam (bench.py:build(40, 25, 20),
    banded element order, x=0 face pinned, gravity; Stable-Neo-Hookean,
    BDF1, h=0.02, 5 Newton iterations, itr_tol 1e-4, two-level coarse space
@@ -26,10 +29,24 @@ failure:
 5. trajectory: a 1000-tet beam, 3 float64 steps, on the card with the
    kernels and on the CPU with the plain versions: positions agree to 1e-9
    relative and the CG counts are equal.
-6. one JSON line of kernel results, then the device line last.
+6. scene path: the same 100k-tet beam with its vertex ids in a seeded
+   random order, written as a .mesh with a scene JSON (twist BC, gravity,
+   SNH, BDF1, dt 0.02, 5 Newton iterations, itr_tol 1e-4, default solver:
+   pcg with the two-level coarse space refreshed every step) into a
+   temporary directory, loaded with load_scene on the card (banded element
+   order and plan: every assembly and CG matvec goes through K4) and
+   stepped through Simulation.step in float32: one warm-up step and three
+   timed steps, counters set to 0 just before and read just after.
+7. scene trajectory: a 2000-tet scene (load_scene builds the banded plan
+   and the coarse space), 3 float64 steps of 3 Newton iterations, on the
+   card and on the CPU (the same loaded objects moved there, so the plain
+   versions run over the same element order and plan): positions agree to
+   1e-9 of scale, CG and Newton counts are equal.
+8. one JSON line of kernel results, then the device line last.
 
---profile DIR additionally traces one more main-path step with
-torch.profiler and writes the per-kernel table to DIR/profile_step.txt.
+--profile DIR additionally traces one more step of each main path with
+torch.profiler and writes the per-kernel tables to DIR/profile_step.txt
+(phase 4) and DIR/profile_scene_step.txt (phase 6).
 """
 
 from __future__ import annotations
@@ -37,8 +54,10 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -99,7 +118,7 @@ def beam(nx, ny, nz, dtype, device):
         dtype="float64" if dtype == torch.float64 else "float32",
     )
     x0 = torch.tensor(V, dtype=dtype, device=device)
-    state = newton.init_state(mesh, config, x0, torch.zeros_like(x0))
+    state = newton.init_state(mesh, config, (), x0, torch.zeros_like(x0))
     cs = coarsemod.build_coarse_space(
         V, T, is_fixed, target_size=48, dtype=dtype, device=device
     )
@@ -144,13 +163,13 @@ def copies(make, bytes_per_set):
     return [make() for _ in range(n)]
 
 
-def kernel_cases(mesh, cs, state, dt):
-    """K1, K2 and K3 on the inputs the main path gives them: the
-    coefficients at a perturbed state of the 100k-tet beam."""
-    from mixedfem_tpu_torch import cuda
+def step_inputs(mesh, state, dt):
+    """What the main path hands the kernels: D, Hs, Gw at a perturbed state
+    of `mesh`, a vector p, and the corner rows of the matvec (m=3) and of
+    the diagonal blocks (m=9)."""
     from mixedfem_tpu_torch.materials import models as mat
     from mixedfem_tpu_torch.mesh import mesh as meshmod
-    from mixedfem_tpu_torch.ops import assembly, psd, rotation, smallops
+    from mixedfem_tpu_torch.ops import psd, rotation, smallops
     from mixedfem_tpu_torch.solvers import operator as opmod
     from mixedfem_tpu_torch.variables import mixed_stretch as ms
 
@@ -171,6 +190,20 @@ def kernel_cases(mesh, cs, state, dt):
         mesh.T, Gw, mesh.mass_coeff, mesh.free_mask, p).reshape(-1, 3)
     rows3 = rows3.contiguous()
     rows9 = torch.einsum("eikr,eiks->ekrs", Gw, Gw).reshape(-1, 9).contiguous()
+    return dict(D=D, Hs=Hs, Gw=Gw, p=p, rows3=rows3, rows9=rows9, g=g)
+
+
+def kernel_cases(mesh, cs, state, dt):
+    """K1, K2 and K3 on the inputs the main path gives them: the
+    coefficients at a perturbed state of the 100k-tet beam."""
+    from mixedfem_tpu_torch import cuda
+    from mixedfem_tpu_torch.ops import assembly, smallops
+    from mixedfem_tpu_torch.solvers import operator as opmod
+
+    dev, dtype = mesh.device, mesh.vols.dtype
+    ins = step_inputs(mesh, state, dt)
+    D, Hs, Gw, p, g = ins["D"], ins["Hs"], ins["Gw"], ins["p"], ins["g"]
+    rows3, rows9 = ins["rows3"], ins["rows9"]
     rows6 = torch.randn((mesh.nv, 6), generator=g, device=dev, dtype=dtype)
     rows36 = torch.randn((cs.pair_plan.slots.shape[0], 36), generator=g,
                          device=dev, dtype=dtype)
@@ -230,6 +263,52 @@ def kernel_cases(mesh, cs, state, dt):
     ]
 
 
+def k4_cases(plan, inc, rows3, rows9, label):
+    """K4 at m=3 (matvec, rhs, inertia gradient) and m=9 (diagonal blocks)
+    on `plan`, with the corner rows in element order padded to its Rp; K2
+    over the mesh's incidence plan `inc` on the same rows is timed beside
+    it (the same function, another design)."""
+    import dataclasses
+
+    from mixedfem_tpu_torch import cuda
+    from mixedfem_tpu_torch.ops import banded_scatter as bs
+
+    Rp = plan.lidx.shape[0]
+    R = inc.slots.shape[0]
+    dev = rows3.device
+    seg = plan.part_vertex[plan.part_of_row]  # the vertex of every row
+
+    def clone(obj):
+        return dataclasses.replace(obj, **{
+            f.name: getattr(obj, f.name).clone()
+            for f in dataclasses.fields(obj)
+            if torch.is_tensor(getattr(obj, f.name))
+        })
+
+    def case(rows):
+        m = rows.shape[1]
+        rows = bs.pad_rows(plan, rows)
+        base = torch.zeros((plan.nv, m), dtype=rows.dtype, device=dev)
+        return dict(
+            name=f"banded_sum_m{m}", label=label, W=plan.W,
+            replaces="mixedfem_tpu/ops/pallas_scatter.py:100",
+            kernel=lambda pl, r, _: cuda.banded_sum(
+                pl.chunk_part_ptr, pl.grp_ptr, pl.grp_rows, pl.vert_ptr,
+                pl.vert_parts, r, pl.chunk, pl.nv),
+            plain=lambda pl, r, _: bs.banded_sum_plain(pl, r),
+            library=lambda pl, r, _: torch.index_add(base, 0, seg, r),
+            k2=lambda _, r, ip: cuda.segment_sum(ip.row_ptr, ip.slots, r[:R],
+                                                 ip.nseg),
+            make=lambda: (clone(plan), rows.clone(), clone(inc)),
+            # what the function must move: the rows, one int32 vertex id per
+            # row and the output (the measure of K2's bound)
+            bytes=nbytes(rows) + Rp * 4 + plan.nv * m * rows.element_size(),
+            flops=Rp * m,
+        )
+
+    return [case(rows3), case(rows9)]
+
+
 def max_err(a, b) -> tuple[float, float]:
     a = a if isinstance(a, tuple) else (a,)
     b = b if isinstance(b, tuple) else (b,)
@@ -238,19 +317,27 @@ def max_err(a, b) -> tuple[float, float]:
     return err, scale
 
 
-def check_kernels(cases, dtype, tol):
+def case_key(c) -> str:
+    return c["name"] + (f" ({c['label']})" if "label" in c else "")
+
+
+def check_kernels(cases, dtype, tol, cast=None):
+    """Each kernel against its plain version on the same inputs; `cast`
+    converts the inputs first (float64 copies of float32 cases)."""
     results = {}
     for c in cases:
         args = c["make"]()
+        if cast is not None:
+            args = tuple(cast(a) for a in args)
         got = c["kernel"](*args)
         ref = c["plain"](*args)
         torch.cuda.synchronize()
         err, scale = max_err(got, ref)
-        log(f"  {c['name']:16s} {str(dtype):14s} max_abs_err {err:.3e} "
+        log(f"  {case_key(c):28s} {str(dtype):14s} max_abs_err {err:.3e} "
             f"(scale {scale:.3e}, tolerance {tol:g} x scale)")
         if not err <= tol * scale:
-            raise AssertionError(f"{c['name']} disagrees with its plain version")
-        results[c["name"]] = err
+            raise AssertionError(f"{case_key(c)} disagrees with its plain version")
+        results[case_key(c)] = err
     return results
 
 
@@ -261,17 +348,20 @@ def time_kernels(cases, dtype):
         ms = device_ms(c["kernel"], sets)
         plain_ms = device_ms(c["plain"], sets)
         lib_ms = None if c["library"] is None else device_ms(c["library"], sets)
+        k2_ms = device_ms(c["k2"], sets) if "k2" in c else None
         bytes_ms = c["bytes"] / PEAK_BYTES * 1e3
         ops_ms = c["flops"] / PEAK_FLOPS[dtype] * 1e3
         out.append(dict(
-            name=c["name"], ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-            bound_ms=max(bytes_ms, ops_ms),
+            name=c["name"], key=case_key(c), ms=ms, plain_ms=plain_ms,
+            library_ms=lib_ms, bound_ms=max(bytes_ms, ops_ms),
             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+            k2_same_rows_ms=k2_ms,
         ))
-        log(f"  {c['name']:16s} kernel {ms * 1e3:9.2f} us  plain "
+        log(f"  {case_key(c):28s} kernel {ms * 1e3:9.2f} us  plain "
             f"{plain_ms * 1e3:9.2f} us  library "
             f"{'-' if lib_ms is None else f'{lib_ms * 1e3:9.2f}'} us  bound "
-            f"{max(bytes_ms, ops_ms) * 1e3:7.2f} us ({c['bytes'] / 1e6:.1f} MB)")
+            f"{max(bytes_ms, ops_ms) * 1e3:7.2f} us ({c['bytes'] / 1e6:.2f} MB)"
+            + ("" if k2_ms is None else f"  K2 on these rows {k2_ms * 1e3:9.2f} us"))
     return out
 
 
@@ -362,16 +452,122 @@ def trajectory():
             raise AssertionError("CG or Newton counts differ")
 
 
-def profile_step(mesh, config, state, cs, out_dir, untraced_ms):
-    import os
+# ---------------------------------------------------------------------------
+# phases 6 and 7: the scene path
+# ---------------------------------------------------------------------------
 
+def write_scene(d, nx, ny, nz, newton, seed):
+    """The bench's beam, box (4, 1, 1), with its vertex ids in a seeded
+    random order (as a mesher's file looks to the loader), as beam.mesh and
+    a scene JSON in the reference vocabulary in directory `d`."""
+    from mixedfem_tpu_torch.io import mesh_io
+    from mixedfem_tpu_torch.mesh import generators
+
+    V, T = generators.box_tet_mesh(nx, ny, nz, size=(4.0, 1.0, 1.0))
+    perm = np.random.default_rng(seed).permutation(len(V))
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(len(perm))
+    mesh_io.write_mesh(os.path.join(d, "beam.mesh"), V[perm], inv[T])
+    scene = {
+        "time_integrator": "BDF1", "dt": 0.02,
+        "max_newton_iterations": newton, "iterative_solver_tolerance": 1e-4,
+        "mixed_variables": ["mixed-stretch"],
+        "material_models": [{
+            "energy": "Stable-Neohookean", "youngs_modulus": 1e6,
+            "poissons_ratio": 0.45, "density": 1000.0,
+        }],
+        "objects": [{
+            "path": "beam.mesh", "normalize": False,
+            "boundary_condition": {"type": "twist", "ratio": 0.1, "axis": 0},
+        }],
+    }
+    path = os.path.join(d, "scene.json")
+    with open(path, "w") as f:
+        json.dump(scene, f)
+    return path
+
+
+def scene_main_path(sim):
+    """One warm-up Simulation.step and three timed ones; launch counts over
+    the four steps."""
+    from mixedfem_tpu_torch import cuda
+
+    x0 = sim.state.x.clone()
+    cuda.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.step()
+    torch.cuda.synchronize()
+    log(f"  warm-up step {(time.perf_counter() - t0) * 1e3:.1f} ms: "
+        f"{describe(sim.state)}")
+    check_energies(sim.state)
+    states, times = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        sim.step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        states.append(sim.state)
+    launches = dict(cuda.LAUNCHES)
+    for k, (st, ms) in enumerate(zip(states, times)):
+        log(f"  step {k + 1}: {ms:.3f} ms, {describe(st)}")
+        check_energies(st)
+    newton_its = sum(st.stats.iterations for st in states)
+    cg = sum(sum(st.stats.solver_iters[:st.stats.iterations].tolist())
+             for st in states)
+    step_ms = sum(times) / 3
+    log(f"  ms_per_step {step_ms:.3f} (3 timed steps), ms per Newton "
+        f"iteration {sum(times) / newton_its:.3f}, CG iterations per Newton "
+        f"{cg / newton_its:.2f}, launches over 4 steps {launches}")
+    x = sim.state.x
+    if x.shape != (sim.mesh.nv, 3) or not torch.isfinite(x).all():
+        raise AssertionError("the scene step produced non-finite positions")
+    pinned = sim.mesh.free_mask == 0
+    moved = (x - x0)[pinned].abs().max().item()
+    log(f"  the twisted ends moved {moved:.4e}")
+    if not moved > 1e-3:
+        raise AssertionError("the twist BC did not move the pinned ends")
+    return step_ms, launches
+
+
+def scene_trajectory(d):
+    """3 float64 steps of a 2000-tet scene on the card (K4 over the banded
+    plan) and on the CPU (the same objects moved there: the plain versions
+    over the same element order and plan)."""
+    from mixedfem_tpu_torch.device import to_device
+    from mixedfem_tpu_torch.io.scene import load_scene
+
+    path = write_scene(d, 20, 5, 4, newton=3, seed=1)
+    card = load_scene(path, dim=3, dtype="float64", device="cuda")
+    if card.matvec_plan is None or card.coarse is None:
+        raise AssertionError("a 2000-tet scene loads without the banded plan")
+    cpu = to_device(card, "cpu")
+    log(f"  E {card.mesh.nelem} nv {card.mesh.nv} W {card.matvec_plan.W}")
+    for k in range(3):
+        g, c = card.step(), cpu.step()
+        scale = c.x.abs().max().item()
+        err = (g.x.cpu() - c.x).abs().max().item()
+        cg_g = g.stats.solver_iters.tolist()
+        cg_c = c.stats.solver_iters.tolist()
+        log(f"  step {k}: max |x_card - x_cpu| {err:.3e} (scale {scale:.3f}), "
+            f"CG card {cg_g} cpu {cg_c}")
+        if not err <= 1e-9 * scale:
+            raise AssertionError("the card's scene trajectory leaves the CPU's")
+        if cg_g != cg_c or g.stats.iterations != c.stats.iterations:
+            raise AssertionError("CG or Newton counts differ")
+
+
+def profile_step(step, out_dir, name, untraced_ms):
+    """Trace one more step (`step()` runs it) with torch.profiler: device
+    busy time against the step's wall time, host and device time per span,
+    and the per-kernel table in out_dir/profile_<name>.txt."""
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(out_dir, exist_ok=True)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_steps(mesh, config, state, cs, 1)
+        step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     avgs = prof.key_averages()
@@ -388,7 +584,7 @@ def profile_step(mesh, config, state, cs, out_dir, untraced_ms):
     ]
     for line in spans:
         log(line)
-    path = os.path.join(out_dir, "profile_step.txt")
+    path = os.path.join(out_dir, f"profile_{name}.txt")
     with open(path, "w") as f:
         f.write(f"traced step: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms\n")
         f.write("\n".join(spans) + "\n")
@@ -417,6 +613,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from mixedfem_tpu_torch import cuda
+    from mixedfem_tpu_torch.io.scene import load_scene
+    from mixedfem_tpu_torch.solvers import operator as opmod
 
     log("phase 2: build")
     t0 = time.perf_counter()
@@ -432,7 +630,33 @@ def main() -> int:
     mesh64, _, state64, cs64 = beam(40, 25, 20, torch.float64, "cuda")
     check_kernels(kernel_cases(mesh64, cs64, state64, dt), torch.float64, 1e-12)
     del mesh64, state64, cs64
+    # K4 on the banded beam's plan and on the loaded scene's plan
+    tmp = tempfile.TemporaryDirectory()
+    t0 = time.perf_counter()
+    sim = load_scene(write_scene(tmp.name, 40, 25, 20, newton=5, seed=0),
+                     dim=3, dtype="float32", device="cuda")
+    log(f"  scene loaded in {time.perf_counter() - t0:.1f} s: E "
+        f"{sim.mesh.nelem} nv {sim.mesh.nv} W {sim.matvec_plan.W} chunks "
+        f"{sim.matvec_plan.nchunks} partials {sim.matvec_plan.nparts}, "
+        f"aggregates {sim.coarse.naggr}")
+    beam_plan = opmod.build_banded_plan(mesh)
+    beam_rows = step_inputs(mesh, state, dt)
+    scene_rows = step_inputs(sim.mesh, sim.state, dt)
+    k4_beam = k4_cases(beam_plan, mesh.plan, beam_rows["rows3"],
+                       beam_rows["rows9"], f"beam, W={beam_plan.W}")
+    k4_scene = k4_cases(sim.matvec_plan, sim.mesh.plan, scene_rows["rows3"],
+                        scene_rows["rows9"], f"scene, W={sim.matvec_plan.W}")
+    del beam_rows, scene_rows
+    errs.update(check_kernels(k4_beam + k4_scene, torch.float32, 1e-5))
+
+    def f64(a):
+        return a.double() if torch.is_tensor(a) and a.is_floating_point() else a
+
+    check_kernels(k4_beam + k4_scene, torch.float64, 1e-12, cast=f64)
     timings = time_kernels(cases32, torch.float32)
+    k4_beam_t = time_kernels(k4_beam, torch.float32)
+    k4_scene_t = time_kernels(k4_scene, torch.float32)
+    del k4_beam, beam_plan
 
     log("phase 4: main path, 100k tets, float32")
     final, step_ms, launches = main_path(mesh, config, state, cs)
@@ -440,24 +664,58 @@ def main() -> int:
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
     if args.profile:
-        profile_step(mesh, config, final, cs, args.profile, step_ms)
+        profile_step(lambda: run_steps(mesh, config, final, cs, 1),
+                     args.profile, "step", step_ms)
+    del mesh, state, cs, final
 
     log("phase 5: float64 trajectory, card against CPU")
     trajectory()
 
-    log("phase 6: results")
-    kernels = [
-        dict(
-            name=t["name"], route="cuda",
+    log("phase 6: scene path, 100k tets, float32 (load_scene, Simulation.step)")
+    scene_ms, scene_launches = scene_main_path(sim)
+    need = ("element_apply", "banded_sum_m3", "banded_sum_m9",
+            "segment_sum_m6", "segment_sum_m36", "contract_G_Gw")
+    missing = [k for k in need if scene_launches.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the scene path: {missing}")
+    if args.profile:
+        profile_step(sim.step, args.profile, "scene_step", scene_ms)
+    del sim
+
+    log("phase 7: float64 scene trajectory, card against CPU")
+    with tempfile.TemporaryDirectory() as d:
+        scene_trajectory(d)
+    tmp.cleanup()
+
+    log("phase 8: results")
+    replaces = {c["name"]: c["replaces"] for c in cases32 + k4_scene}
+    k4_other = {t["name"]: t for t in k4_beam_t}
+    kernels = []
+    for t in timings + k4_scene_t:
+        name = t["name"]
+        by_path = {"beam_step": launches.get(name, 0),
+                   "scene_step": scene_launches.get(name, 0)}
+        entry = dict(
+            name=name, route="cuda",
             source="mixedfem_tpu_torch/csrc/kernels.cu",
-            replaces=next(c["replaces"] for c in cases32 if c["name"] == t["name"]),
-            launches=launches[t["name"]], max_abs_err=errs[t["name"]],
+            replaces=replaces[name],
+            # the path that carries the kernel: K4 the scene's, K1-K3 the
+            # bench beam's (phase 4)
+            launches=by_path["scene_step" if name.startswith("banded")
+                             else "beam_step"],
+            launches_by_path=by_path, max_abs_err=errs[t["key"]],
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"],
         )
-        for t in timings
-    ]
-    log(f"{card}, ms_per_step {step_ms:.3f}")
+        if name in k4_other:
+            o = k4_other[name]
+            entry["shapes"] = t["key"]
+            entry["k2_same_rows_ms"] = t["k2_same_rows_ms"]
+            entry["other_plan"] = {k: o[k] for k in (
+                "key", "ms", "plain_ms", "bound_ms", "library_ms",
+                "k2_same_rows_ms")}
+        kernels.append(entry)
+    log(f"{card}, ms_per_step {step_ms:.3f}, scene ms_per_step {scene_ms:.3f}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,6 +21,25 @@ def enu_to_lame(ym: float, pr: float) -> Tuple[float, float]:
 
 
 @dataclasses.dataclass(frozen=True)
+class MaterialConfig:
+    """Per-object material parameters."""
+
+    model: str = "stable-neohookean"  # a name of materials.models.MATERIAL_NAMES
+    ym: float = 1e6
+    pr: float = 0.45
+    density: float = 1000.0
+    thickness: float = 1e-3  # shells only
+
+    @property
+    def la(self) -> float:
+        return enu_to_lame(self.ym, self.pr)[0]
+
+    @property
+    def mu(self) -> float:
+        return enu_to_lame(self.ym, self.pr)[1]
+
+
+@dataclasses.dataclass(frozen=True)
 class SimConfig:
     """Global simulation parameters; see mixedfem_tpu/config.py for the
     meaning of each field."""

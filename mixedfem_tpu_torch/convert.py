@@ -1,4 +1,5 @@
-"""Carry the JAX package's mesh, state and coarse space across to the port.
+"""Carry the JAX package's mesh, state, coarse space, boundary conditions,
+press controllers and banded plan across to the port.
 
 The JAX objects are handed over as dicts of numpy arrays (one entry per
 dataclass field, nested dataclasses as nested dicts, static fields such as
@@ -14,15 +15,20 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from mixedfem_tpu_torch.bc.boundary_conditions import BCSpec, BCState
+from mixedfem_tpu_torch.bc.press import PressSpec, PressState
 from mixedfem_tpu_torch.device import resolve_device
 from mixedfem_tpu_torch.integrators.bdf import BDFState
 from mixedfem_tpu_torch.mesh.mesh import MeshData, mesh_from_arrays
+from mixedfem_tpu_torch.ops.banded_scatter import plan_from_arrays
 from mixedfem_tpu_torch.optimizer.newton import SimState, StepStats
 from mixedfem_tpu_torch.solvers.coarse import CoarseSpace, coarse_from_arrays
+from mixedfem_tpu_torch.solvers.operator import BandedPlan
 
 _MESH_FIELDS = (
     "V0", "T", "dphidX", "vols", "mass_coeff", "mass_lumped", "mass_diag",
-    "free_mask", "mu", "lam", "model_id", "ext_force",
+    "free_mask", "mu", "lam", "model_id", "ext_force", "obj_id", "F_srf",
+    "E_srf",
 )
 
 
@@ -45,6 +51,19 @@ def coarse_from_numpy(d: Mapping, dtype, device) -> CoarseSpace:
     )
 
 
+def bc_state_from_numpy(d: Mapping) -> BCState:
+    return BCState(
+        elapsed=float(np.asarray(d["elapsed"])),
+        reversed=bool(np.asarray(d["reversed"])),
+        done=bool(np.asarray(d["done"])),
+    )
+
+
+def press_state_from_numpy(d: Mapping) -> PressState:
+    return PressState(**{k: float(np.asarray(d[k]))
+                         for k in ("f", "marker_pos", "marker_pos0")})
+
+
 def state_from_numpy(d: Mapping, dtype, device) -> SimState:
     def f(a):
         return torch.tensor(np.asarray(a), dtype=dtype, device=device)
@@ -61,6 +80,10 @@ def state_from_numpy(d: Mapping, dtype, device) -> SimState:
         bdf=BDFState(
             x_hist=f(bdf["x_hist"]), v_hist=f(bdf["v_hist"]),
             order=int(bdf["order"]), h=float(bdf["h"]),
+        ),
+        bc_states=tuple(bc_state_from_numpy(b) for b in d["bc_states"]),
+        press_states=tuple(
+            press_state_from_numpy(p) for p in d["press_states"]
         ),
         step_count=int(np.asarray(d["step_count"])),
         stats=StepStats(
@@ -86,4 +109,39 @@ def from_jax_numpy(mesh=None, state=None, coarse=None, *, dtype=torch.float64,
         None if mesh is None else mesh_from_numpy(mesh, dtype, dev),
         None if state is None else state_from_numpy(state, dtype, dev),
         None if coarse is None else coarse_from_numpy(coarse, dtype, dev),
+    )
+
+
+def bc_spec_from_numpy(d: Mapping, dtype, device) -> BCSpec:
+    dev = resolve_device(device)
+
+    def f(a):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    return BCSpec(
+        **{k: f(d[k]) for k in ("group0", "group1", "fixed", "center",
+                                "center0", "center1", "vel_vec")},
+        type=d["type"], velocity=float(d["velocity"]),
+        duration=float(d["duration"]), flip=bool(d["flip"]),
+    )
+
+
+def press_spec_from_numpy(d: Mapping, dtype, device) -> PressSpec:
+    dev = resolve_device(device)
+    return PressSpec(
+        forced=torch.tensor(np.asarray(d["forced"]), dtype=dtype, device=dev),
+        axis=int(d["axis"]), marker=int(d["marker"]),
+        target_velocity=float(d["target_velocity"]),
+        max_force=float(d["max_force"]),
+        max_displacement=float(d["max_displacement"]),
+    )
+
+
+def banded_plan_from_numpy(d: Mapping, device) -> BandedPlan:
+    """The JAX BandedPlan (lidx, win_start in lane units, nrows, chunk, W,
+    nv) with K4's fixed-order plan derived from it."""
+    return plan_from_arrays(
+        lidx=d["lidx"], win_start=d["win_start"], nrows=int(d["nrows"]),
+        chunk=int(d["chunk"]), W=int(d["W"]), nv=int(d["nv"]),
+        device=resolve_device(device),
     )

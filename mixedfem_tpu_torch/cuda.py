@@ -10,7 +10,8 @@ outputs with ``torch.empty``, launches on ``torch.cuda.current_stream()``,
 raises if the launch reports a CUDA error, and adds one to its entry of
 ``LAUNCHES``. The launchers take CUDA tensors only: the CPU path is the plain
 PyTorch version beside each wrapper (ops/assembly.py, solvers/operator.py,
-ops/smallops.py), chosen there by the device of the input.
+ops/smallops.py, ops/banded_scatter.py), chosen there by the device of the
+input.
 """
 
 from __future__ import annotations
@@ -34,9 +35,9 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
-# launches per kernel (segment_sum counted per row width m); a caller
-# clears it before a run and reads it after, to show the run went through
-# the kernels
+# launches per kernel (segment_sum and banded_sum counted per row width m);
+# a caller clears it before a run and reads it after, to show the run went
+# through the kernels
 LAUNCHES: collections.Counter = collections.Counter()
 
 _lib = None
@@ -91,7 +92,9 @@ def _load():
         getattr(lib, f"mf_element_apply_{suffix}").argtypes = [vp] * 6 + [i32, vp]
         getattr(lib, f"mf_segment_sum_{suffix}").argtypes = [vp] * 4 + [i32, i32, vp]
         getattr(lib, f"mf_contract_G_Gw_{suffix}").argtypes = [vp] * 6 + [i32, vp]
-        for name in ("element_apply", "segment_sum", "contract_G_Gw"):
+        getattr(lib, f"mf_banded_sum_{suffix}").argtypes = [vp] * 8 + [i32] * 4 + [vp]
+        for name in ("element_apply", "segment_sum", "contract_G_Gw",
+                     "banded_sum"):
             getattr(lib, f"mf_{name}_{suffix}").restype = i32
     lib.mf_error_string.argtypes = [i32]
     lib.mf_error_string.restype = ctypes.c_char_p
@@ -185,3 +188,44 @@ def contract_G_Gw(D, dphi, Hs, vols):
     )
     LAUNCHES["contract_G_Gw"] += 1
     return G, Gw
+
+
+# K4's stage-1 block holds the chunk's row ids and offsets and all of its
+# rows in shared memory, at most the 227 KB a block may opt into on Hopper
+_BAND_SMEM = 227 * 1024
+
+
+def _band_smem_fits(chunk: int, m: int, itemsize: int) -> bool:
+    index_bytes = ((2 * chunk + 1) * 4 + 15) // 16 * 16
+    return index_bytes + chunk * m * itemsize <= _BAND_SMEM
+
+
+def banded_sum(chunk_part_ptr, grp_ptr, grp_rows, vert_ptr, vert_parts, rows,
+               chunk: int, nv: int) -> torch.Tensor:
+    """K4: out[v] = sum of the rows (Rp, m) whose vertex is v, per chunk of
+    `chunk` rows into partials, then per vertex in chunk order, (nv, m)."""
+    sfx = _float_dtype(rows)
+    dev, dt = rows.device, rows.dtype
+    Rp, m = rows.shape
+    if chunk <= 0 or Rp % chunk:
+        raise ValueError(f"{Rp} rows are not a whole number of {chunk}-row chunks")
+    if not _band_smem_fits(chunk, m, rows.element_size()):
+        raise ValueError(f"a chunk of {chunk} rows of width {m} does not fit "
+                         "shared memory")
+    nchunks = Rp // chunk
+    P = vert_parts.shape[0]
+    _check(chunk_part_ptr, "chunk_part_ptr", (nchunks + 1,), torch.int32, dev)
+    _check(grp_ptr, "grp_ptr", (P + 1,), torch.int32, dev)
+    _check(grp_rows, "grp_rows", (Rp,), torch.int32, dev)
+    _check(vert_ptr, "vert_ptr", (nv + 1,), torch.int32, dev)
+    _check(vert_parts, "vert_parts", (P,), torch.int32, dev)
+    _check(rows, "rows", (Rp, m), dt, dev)
+    part = torch.empty((P, m), dtype=dt, device=dev)
+    out = torch.empty((nv, m), dtype=dt, device=dev)
+    _launch(
+        "banded_sum", sfx, chunk_part_ptr.data_ptr(), grp_ptr.data_ptr(),
+        grp_rows.data_ptr(), vert_ptr.data_ptr(), vert_parts.data_ptr(),
+        rows.data_ptr(), part.data_ptr(), out.data_ptr(), nchunks, chunk, nv, m,
+    )
+    LAUNCHES[f"banded_sum_m{m}"] += 1
+    return out

@@ -1,6 +1,9 @@
-"""Device selection for the port's entry points."""
+"""Device selection for the port's entry points, and moving their objects
+between devices."""
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -15,3 +18,19 @@ def resolve_device(device="cuda") -> torch.device:
             "plain PyTorch versions of the kernels on the CPU"
         )
     return dev
+
+
+def to_device(obj, device):
+    """A copy of `obj` (a tensor, or dataclasses, tuples and lists holding
+    tensors, such as MeshData, SimState, CoarseSpace or a banded plan) with
+    every tensor on `device`; other values are shared."""
+    if torch.is_tensor(obj):
+        return obj.to(device)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{
+            f.name: to_device(getattr(obj, f.name), device)
+            for f in dataclasses.fields(obj) if f.init
+        })
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(to_device(o, device) for o in obj)
+    return obj

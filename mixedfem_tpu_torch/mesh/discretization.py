@@ -1,5 +1,6 @@
 """Host-side (numpy, f64) linear tet discretization precompute: a copy of
-the tet part of mixedfem_tpu/mesh/discretization.py.
+the tet part of mixedfem_tpu/mesh/discretization.py, with its surface
+extraction (boundary_facets, edges).
 
 Conventions (identical to the reference):
 - F_e = sum_k x[T[e,k]] dphi_k/dX^T, i.e. F[r,c] = sum_k x_k[r] dphidX[k,c].
@@ -41,3 +42,24 @@ def consistent_mass_coeff(vols: np.ndarray, density: np.ndarray, k: int = 4):
     base = 1.0 + np.eye(k)
     w = density * vols / 20.0
     return w[:, None, None] * base[None]
+
+
+def boundary_facets(T: np.ndarray) -> np.ndarray:
+    """Boundary faces of a tet mesh: faces occurring exactly once
+    (igl::boundary_facets), oriented outward for positive tets."""
+    if T.shape[1] != 4:
+        raise NotImplementedError("only linear tets (k=4) are ported")
+    faces = np.concatenate(
+        [T[:, [1, 3, 2]], T[:, [0, 2, 3]], T[:, [0, 3, 1]], T[:, [0, 1, 2]]],
+        axis=0,
+    )
+    key = np.sort(faces, axis=1)
+    _, inv, counts = np.unique(key, axis=0, return_inverse=True,
+                               return_counts=True)
+    return faces[counts[inv.reshape(-1)] == 1].astype(np.int32)
+
+
+def edges(F: np.ndarray) -> np.ndarray:
+    """Unique undirected edges of a triangle list (igl::edges)."""
+    E = np.concatenate([F[:, [0, 1]], F[:, [1, 2]], F[:, [2, 0]]], axis=0)
+    return np.unique(np.sort(E, axis=1), axis=0).astype(np.int32)

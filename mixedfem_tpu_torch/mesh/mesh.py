@@ -35,6 +35,9 @@ class MeshData:
     lam: torch.Tensor         # (E,) Lame lambda
     model_id: torch.Tensor    # (E,) int32 index into `models`
     ext_force: torch.Tensor   # (nv, 3) external acceleration
+    obj_id: torch.Tensor      # (nv,) int32 object index per vertex
+    F_srf: torch.Tensor       # (nf, 3) int32 boundary faces
+    E_srf: torch.Tensor       # (ne, 2) int32 boundary edges
     plan: assembly.IncidencePlan  # vertex <- (element, corner) slots
     models: Tuple[str, ...] = ()
     dim: int = 3
@@ -54,7 +57,7 @@ class MeshData:
 
 def mesh_from_arrays(
     *, V0, T, dphidX, vols, mass_coeff, mass_lumped, mass_diag, free_mask,
-    mu, lam, model_id, ext_force, models, dtype, device,
+    mu, lam, model_id, ext_force, obj_id, F_srf, E_srf, models, dtype, device,
 ) -> MeshData:
     """MeshData from host arrays already in their final values (cast to
     `dtype` on `device`); builds the incidence plan from T."""
@@ -78,6 +81,11 @@ def mesh_from_arrays(
         lam=f(lam),
         model_id=torch.tensor(np.asarray(model_id, np.int32), device=device),
         ext_force=f(ext_force),
+        obj_id=torch.tensor(np.asarray(obj_id, np.int32), device=device),
+        F_srf=torch.tensor(np.asarray(F_srf, np.int32).reshape(-1, 3),
+                           device=device),
+        E_srf=torch.tensor(np.asarray(E_srf, np.int32).reshape(-1, 2),
+                           device=device),
         plan=assembly.build_incidence_plan(T, len(np.asarray(V0)), device),
         models=tuple(models),
     )
@@ -94,6 +102,7 @@ def build_mesh_data(
     models: Tuple[str, ...],
     is_fixed: np.ndarray,
     ext_force: np.ndarray,
+    obj_id: np.ndarray | None = None,
     dtype=torch.float64,
     device="cuda",
 ) -> MeshData:
@@ -113,12 +122,15 @@ def build_mesh_data(
     np.add.at(
         mdiag, T.reshape(-1), np.diagonal(mass_coeff, axis1=1, axis2=2).reshape(-1)
     )
+    F_srf = disc.boundary_facets(T)
     return mesh_from_arrays(
         V0=V, T=T, dphidX=dphidX, vols=vols, mass_coeff=mass_coeff,
         mass_lumped=lumped, mass_diag=mdiag,
         free_mask=(~np.asarray(is_fixed, bool)).astype(np.float64),
         mu=np.broadcast_to(mu, (E,)), lam=np.broadcast_to(lam, (E,)),
         model_id=np.broadcast_to(model_id, (E,)), ext_force=ext_force,
+        obj_id=np.zeros(len(V)) if obj_id is None else obj_id,
+        F_srf=F_srf, E_srf=disc.edges(F_srf),
         models=models, dtype=dtype, device=dev,
     )
 

@@ -4,16 +4,22 @@ mixedfem_tpu/optimizer/newton.py:newton_step).
 One call is one implicit BDF step of a 3D tet solid with the mixed-stretch
 variable:
 
-  [ update -> assemble (K2) -> PCG on the condensed operator (K1 + K2) ->
+  press forces -> [ update -> assemble -> PCG on the condensed operator ->
     local (ds, la) -> backtracking line search ] x <= outer_steps ->
-  BDF history push -> la = 0
+  scripted BC motion -> press controllers -> BDF history push -> la = 0
+
+Vertex sums go through the mesh's incidence plan (K2, and K1 + K2 for the
+CG matvec) or, when a banded plan is given (solvers/operator.py
+BandedPlan; the scene loader builds one on the card), through K4 (and
+K1 + K4 for the matvec), as the JAX step's `bassemble` and
+`banded_matvec` do.
 
 The Newton loop, the CG loop and the line search are host loops; each
 convergence test reads one scalar from the device. Each stage runs under a
 profiler span (`newton.coarse_refresh`, `newton.update`, `newton.pcg`,
-`newton.line_search`), which costs nothing unless torch.profiler is on. Paths the JAX step has
-and this port does not cover yet (contact, vanilla stretch, f64 islands,
-warm-started rotations, scripted boundary conditions, other solvers) raise
+`newton.line_search`), which costs nothing unless torch.profiler is on.
+Paths the JAX step has and this port does not cover yet (contact, vanilla
+stretch, f64 islands, warm-started rotations, other solvers) raise
 NotImplementedError.
 """
 
@@ -25,23 +31,19 @@ from typing import Tuple
 import torch
 from torch.profiler import record_function
 
+from mixedfem_tpu_torch.bc import boundary_conditions as bcmod
+from mixedfem_tpu_torch.bc import press as pressmod
 from mixedfem_tpu_torch.config import SimConfig
 from mixedfem_tpu_torch.integrators import bdf as bdfmod
 from mixedfem_tpu_torch.mesh import mesh as meshmod
 from mixedfem_tpu_torch.ops import assembly
+from mixedfem_tpu_torch.ops import banded_scatter as bs
 from mixedfem_tpu_torch.solvers import coarse as coarsemod
+from mixedfem_tpu_torch.solvers import factory
 from mixedfem_tpu_torch.solvers import operator as opmod
 from mixedfem_tpu_torch.solvers import pcg as pcgmod
 from mixedfem_tpu_torch.variables import displacement as disp
 from mixedfem_tpu_torch.variables import mixed_stretch as ms
-
-# reference factory names that resolve to the two paths ported here
-_SOLVERS = {
-    "pcg": "pcg",
-    "affine-pcg": "pcg",
-    "pcg-block-jacobi": "pcg-block-jacobi",
-    "eigen-pcg-block_jacobi": "pcg-block-jacobi",
-}
 
 
 @dataclasses.dataclass
@@ -60,10 +62,12 @@ class StepStats:
 
 @dataclasses.dataclass
 class SimState:
-    x: torch.Tensor     # (nv, 3) positions
+    x: torch.Tensor     # (nv, 3) positions (pinned rows follow the BCs)
     s: torch.Tensor     # (E, 6) mixed stretch
     la: torch.Tensor    # (E, 6) multipliers
     bdf: bdfmod.BDFState
+    bc_states: Tuple[bcmod.BCState, ...]
+    press_states: Tuple[pressmod.PressState, ...]
     step_count: int
     stats: StepStats
     # cached dense coarse inverse (ncd, ncd) when coarse_refresh_every > 1,
@@ -83,7 +87,12 @@ def empty_stats(outer: int, dtype, device) -> StepStats:
 
 
 def init_state(
-    mesh: meshmod.MeshData, config: SimConfig, x0: torch.Tensor, v0: torch.Tensor
+    mesh: meshmod.MeshData,
+    config: SimConfig,
+    bc_states: Tuple[bcmod.BCState, ...],
+    x0: torch.Tensor,
+    v0: torch.Tensor,
+    press_states: Tuple[pressmod.PressState, ...] = (),
 ) -> SimState:
     s0, la0 = ms.reset(mesh, x0)
     return SimState(
@@ -91,6 +100,8 @@ def init_state(
         s=s0,
         la=la0,
         bdf=bdfmod.bdf_init(config.integrator, x0, v0, config.h),
+        bc_states=tuple(bc_states),
+        press_states=tuple(press_states),
         step_count=0,
         stats=empty_stats(config.outer_steps, x0.dtype, x0.device),
         precond=torch.zeros((0, 0), dtype=x0.dtype, device=x0.device),
@@ -107,13 +118,10 @@ def _total_energy(mesh, bdf, h2, x, s, la, Sv=None):
     )
 
 
-def _check_supported(config: SimConfig, bc_specs) -> str:
-    solver = _SOLVERS.get(config.solver)
-    if solver is None:
-        raise NotImplementedError(
-            f"solver '{config.solver}': this port runs 'pcg' and "
-            "'pcg-block-jacobi'"
-        )
+def check_supported(config: SimConfig) -> str:
+    """The solve path of `config`; raises NotImplementedError for what this
+    port does not cover."""
+    solver = factory.resolve_solver(config.solver)
     if "mixed-stretch" not in config.mixed_variables or config.variables:
         raise NotImplementedError(
             "this port steps the mixed-stretch variable alone"
@@ -124,8 +132,6 @@ def _check_supported(config: SimConfig, bc_specs) -> str:
         raise NotImplementedError("record_vanilla_gradient")
     if config.coarse_inverse_method not in ("newton-schulz", "lu"):
         raise ValueError(config.coarse_inverse_method)
-    if tuple(bc_specs):
-        raise NotImplementedError("scripted boundary conditions")
     return solver
 
 
@@ -135,18 +141,38 @@ def newton_step(
     bc_specs: Tuple,
     state: SimState,
     coarse: coarsemod.CoarseSpace | None = None,
+    press_specs: Tuple[pressmod.PressSpec, ...] = (),
+    matvec_plan: opmod.BandedPlan | None = None,
 ) -> SimState:
     """One implicit BDF timestep. `coarse` enables the two-level
-    rigid-body coarse preconditioner (solver 'pcg' only)."""
-    solver = _check_supported(config, bc_specs)
+    rigid-body coarse preconditioner (solver 'pcg' only); `matvec_plan`
+    (operator.build_banded_plan) sends the CG matvec and the once-per-Newton
+    assemblies through the banded sum (K4 on the card)."""
+    solver = check_supported(config)
     if config.rhs_precision == "float64" and state.x.dtype != torch.float64:
         raise NotImplementedError("rhs_precision='float64' islands")
     dt = bdfmod.bdf_dt(state.bdf)
     h2 = dt * dt
     dtype, dev = state.x.dtype, state.x.device
     outer = config.outer_steps
-    plan = mesh.plan
     bdf = state.bdf
+
+    # dynamic external forces (MechanicalPress controllers)
+    if press_specs:
+        press_ext = torch.zeros_like(state.x)
+        for spec, pst in zip(press_specs, state.press_states):
+            press_ext = press_ext + pressmod.press_force(spec, pst, mesh.nv, 3)
+        mesh = dataclasses.replace(mesh, ext_force=mesh.ext_force + press_ext)
+
+    def assemble(contrib):
+        """(E, k, ...) corner contributions -> (nv, ...), in a fixed order."""
+        if matvec_plan is None:
+            return assembly.segment_sum(mesh.plan, contrib)
+        trail = tuple(contrib.shape[2:])
+        rows = bs.pad_rows(matvec_plan, contrib.reshape(mesh.T.numel(), -1))
+        return bs.scatter_add_sorted(matvec_plan, rows).reshape(
+            (mesh.nv,) + trail
+        )
 
     target = disp.target(mesh, bdf, blend=config.inertia_blend_factor)
 
@@ -190,21 +216,19 @@ def newton_step(
     while it < outer and dec > config.newton_tol and res > 1e-12:
         with record_function("newton.update"):
             # --- assemble: inertia gradient, rhs, block-Jacobi blocks (K2)
-            b = -meshmod.project_free(mesh, assembly.segment_sum(
-                plan, disp.gradient_contrib(
-                    mesh, bdf, x, blend=config.inertia_blend_factor
-                ),
-            ))
+            b = -meshmod.project_free(mesh, assemble(disp.gradient_contrib(
+                mesh, bdf, x, blend=config.inertia_blend_factor
+            )))
             coeffs = ms.update(mesh, x, s, dt)
             b = b + meshmod.project_free(
-                mesh, assembly.segment_sum(plan, ms.rhs_contrib(mesh, coeffs, s))
+                mesh, assemble(ms.rhs_contrib(mesh, coeffs, s))
             )
-            blocks = mesh.mass_diag[:, None, None] * eye + assembly.segment_sum(
-                plan, ms.diag_blocks_contrib(mesh, coeffs)
+            blocks = mesh.mass_diag[:, None, None] * eye + assemble(
+                ms.diag_blocks_contrib(mesh, coeffs)
             )
 
         with record_function("newton.pcg"):
-            # --- condensed SPD solve (K1 + K2 matvec)
+            # --- condensed SPD solve (K1 + K2, or K1 + K4, matvec)
             bj = pcgmod.block_jacobi_inv(blocks, mesh.free_mask)
             if coarse is not None:
                 tl = coarsemod.two_level_preconditioner(coarse, mesh.free_mask, bj)
@@ -215,7 +239,9 @@ def newton_step(
                 Minv = bj
 
             def A(p):
-                return opmod.element_matvec(mesh, p, coeffs)
+                if matvec_plan is None:
+                    return opmod.element_matvec(mesh, p, coeffs)
+                return opmod.banded_matvec(mesh, matvec_plan, p, coeffs)
 
             dx0 = meshmod.project_free(mesh, target - x)
             dx, cg_iters, cg_err = pcgmod.pcg(
@@ -258,12 +284,24 @@ def newton_step(
         E_prev = E
         dec, res = float(dec_t), float(res_t)
 
-    # --- BDF history push, clear la
+    # --- scripted Dirichlet BC motion, then the press controllers
+    bc_states = []
+    for spec, bcst in zip(bc_specs, state.bc_states):
+        x, bcst = bcmod.bc_step(spec, bcst, x, config.h)
+        bc_states.append(bcst)
+    press_states = tuple(
+        pressmod.press_step(spec, pst, x, config.h)
+        for spec, pst in zip(press_specs, state.press_states)
+    )
+
+    # --- BDF history push with the BC-moved positions, clear la
     return SimState(
         x=x,
         s=s,
         la=torch.zeros_like(la),
         bdf=bdfmod.bdf_update(bdf, x),
+        bc_states=tuple(bc_states),
+        press_states=press_states,
         step_count=state.step_count + 1,
         stats=stats,
         precond=precond_out,

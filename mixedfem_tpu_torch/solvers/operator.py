@@ -1,12 +1,15 @@
 """The condensed-system CG matvec (port of
-mixedfem_tpu/solvers/operator.py:element_matvec and sort_elements_banded).
+mixedfem_tpu/solvers/operator.py: element_matvec, sort_elements_banded and
+the banded matvec, BandedPlan / build_banded_plan / banded_matvec).
 
 y = P (sum_e scatter(M_e (x) I + Gw_e^T Gw_e) P^T p_e): kernel K1
 (``element_apply``, csrc/kernels.cu:element_apply_kernel) computes the
-per-corner rows of every element, and kernel K2 (ops/assembly.py
-``segment_sum``) sums them per vertex in a fixed order. Together they
-compute what mixedfem_tpu/ops/brick.py:_matvec_kernel computes on the TPU,
-on plain (nv, 3) vectors.
+per-corner rows of every element, and a fixed-order sum adds them per
+vertex: kernel K2 (ops/assembly.py ``segment_sum``) over the mesh's
+incidence plan in ``element_matvec``, which computes what
+mixedfem_tpu/ops/brick.py:_matvec_kernel computes on the TPU; kernel K4
+(ops/banded_scatter.py ``scatter_add_sorted``) over a banded plan in
+``banded_matvec``, the matvec of every loaded scene on the card.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import torch
 from mixedfem_tpu_torch import cuda
 from mixedfem_tpu_torch.mesh import mesh as meshmod
 from mixedfem_tpu_torch.ops import assembly
+from mixedfem_tpu_torch.ops import banded_scatter as bs
 from mixedfem_tpu_torch.variables.mixed_stretch import StretchCoeffs
 
 
@@ -50,4 +54,28 @@ def element_matvec(
 ) -> torch.Tensor:
     """(P M P^T + P A_stretch P^T) p, the fused condensed operator."""
     out = assembly.segment_sum(mesh.plan, element_apply(mesh, ms_coeffs.Gw, p))
+    return meshmod.project_free(mesh, out)
+
+
+# The banded plan of the element table: the scatter plan of the rows
+# (E*4, .) in element order (elements sorted by min vertex id keep its
+# windows narrow; any order is summed correctly).
+BandedPlan = bs.ScatterPlan
+
+
+def build_banded_plan(mesh: meshmod.MeshData, chunk: int = 2048) -> BandedPlan:
+    """Banded plan of the mesh's corner rows, on the mesh's device."""
+    T = mesh.T.cpu().numpy()
+    return bs.build_banded_scatter_plan(T.reshape(-1), mesh.nv, chunk=chunk,
+                                        device=mesh.device)
+
+
+def banded_matvec(
+    mesh: meshmod.MeshData, plan: BandedPlan, p: torch.Tensor,
+    ms_coeffs: StretchCoeffs,
+) -> torch.Tensor:
+    """element_matvec with the vertex sum over the banded plan: K1's rows in
+    element order, zero-padded to the plan's Rp, summed by K4."""
+    rows = element_apply(mesh, ms_coeffs.Gw, p).reshape(-1, 3)
+    out = bs.scatter_add_sorted(plan, bs.pad_rows(plan, rows))
     return meshmod.project_free(mesh, out)

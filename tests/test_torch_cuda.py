@@ -3,13 +3,16 @@
 Each kernel is built with nvcc from mixedfem_tpu_torch/csrc/kernels.cu and
 held to its plain PyTorch version on the same CUDA inputs: float64 to 1e-12
 and float32 to 1e-5 of the output's scale (the kernels sum in another order
-than the plain versions). A short float64 step on the card goes through all
-three kernels and matches the CPU's step. This file imports neither JAX nor
+than the plain versions). A short float64 step on the card goes through K1-K3
+and matches the CPU's step; a loaded scene steps through K4 and repeats bit
+for bit. This file imports neither JAX nor
 the JAX package, so it also runs where only PyTorch is installed:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 
 Every test skips where torch.cuda.is_available() is false."""
+
+import json
 
 import numpy as np
 import pytest
@@ -17,8 +20,12 @@ import torch
 
 from mixedfem_tpu_torch import cuda
 from mixedfem_tpu_torch.config import SimConfig
+from mixedfem_tpu_torch.io import mesh_io
+from mixedfem_tpu_torch.io.scene import load_scene
+from mixedfem_tpu_torch.mesh import generators
 from mixedfem_tpu_torch.mesh import mesh as tmesh
 from mixedfem_tpu_torch.ops import assembly, rotation, smallops
+from mixedfem_tpu_torch.ops import banded_scatter as bs
 from mixedfem_tpu_torch.optimizer import newton
 from mixedfem_tpu_torch.solvers import coarse as tcoarse
 from mixedfem_tpu_torch.solvers import operator as top
@@ -102,7 +109,7 @@ def test_step_on_card_matches_cpu(card):
         cs = tcoarse.build_coarse_space(V, T, kw["is_fixed"], target_size=8,
                                         dtype=torch.float64, device=dev)
         x0 = torch.tensor(V, dtype=torch.float64, device=dev)
-        st = newton.init_state(mesh, cfg, x0, torch.zeros_like(x0))
+        st = newton.init_state(mesh, cfg, (), x0, torch.zeros_like(x0))
         cuda.LAUNCHES.clear()
         for _ in range(2):
             st = newton.newton_step(mesh, cfg, (), st, cs)
@@ -128,9 +135,83 @@ def test_float32_step_repeats_on_card(card):
     x0 = torch.tensor(V, dtype=torch.float32, device=card)
     runs = []
     for _ in range(2):
-        st = newton.init_state(mesh, cfg, x0, torch.zeros_like(x0))
+        st = newton.init_state(mesh, cfg, (), x0, torch.zeros_like(x0))
         for _ in range(2):
             st = newton.newton_step(mesh, cfg, (), st, cs)
         runs.append(st)
+    assert torch.equal(runs[0].x, runs[1].x)
+    assert torch.equal(runs[0].stats.energy, runs[1].stats.energy)
+
+
+def _k4_meshes():
+    """A 2000-tet beam in banded order, and the same beam with its vertex
+    ids in a seeded random order (windows as wide as the mesh)."""
+    V, T = generators.box_tet_mesh(20, 5, 4, size=(4.0, 1.0, 1.0))
+    p = np.random.default_rng(0).permutation(len(V))
+    inv = np.empty_like(p)
+    inv[p] = np.arange(len(p))
+    Ts = inv[T]
+    return {
+        "banded": T[top.sort_elements_banded(T)],
+        "shuffled": Ts[top.sort_elements_banded(Ts)],
+    }, len(V)
+
+
+@pytest.mark.parametrize("chunk", [512, 54])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_banded_sum_matches_plain(card, dtype, chunk):
+    """K4 at both window widths, m = 3 and 9, a row count that is not a
+    multiple of the chunk; a chunk of 54 rows also takes the copy of rows
+    that are not a whole number of 16-byte units."""
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    meshes, nv = _k4_meshes()
+    g = torch.Generator(device=card).manual_seed(0)
+    for name, T in meshes.items():
+        plan = bs.build_banded_scatter_plan(T.reshape(-1), nv, chunk=chunk,
+                                            device=card)
+        assert T.size % chunk and (plan.W >= nv if name == "shuffled"
+                                   else plan.W < nv)
+        for m in (3, 9):
+            rows = bs.pad_rows(plan, torch.randn(T.size, m, generator=g,
+                                                 device=card, dtype=dtype))
+            cuda.LAUNCHES.clear()
+            got = bs.scatter_add_sorted(plan, rows)
+            assert cuda.LAUNCHES[f"banded_sum_m{m}"] == 1
+            ref = bs.banded_sum_plain(plan, rows)
+            torch.cuda.synchronize()
+            scale = ref.abs().max().item()
+            assert (got - ref).abs().max().item() <= tol * scale, (name, m)
+
+
+def _write_scene(d, nx=20, ny=5, nz=4):
+    V, T = generators.box_tet_mesh(nx, ny, nz, size=(4.0, 1.0, 1.0))
+    mesh_io.write_mesh(str(d / "beam.mesh"), V, T)
+    scene = {
+        "dt": 0.02, "max_newton_iterations": 3,
+        "mixed_variables": ["mixed-stretch"],
+        "material_models": [{"energy": "Stable-Neohookean"}],
+        "objects": [{"path": "beam.mesh", "boundary_condition": {
+            "type": "twist", "ratio": 0.1, "axis": 0}}],
+    }
+    (d / "scene.json").write_text(json.dumps(scene))
+    return str(d / "scene.json")
+
+
+def test_float32_scene_step_repeats_on_card(card, tmp_path):
+    """A 2000-tet scene loads with the banded plan and the coarse space; its
+    float32 steps (K1, K3, K4, and K2 in the coarse space) repeat bit for
+    bit."""
+    path = _write_scene(tmp_path)
+    runs = []
+    for _ in range(2):
+        sim = load_scene(path, dim=3, dtype="float32")
+        assert sim.matvec_plan is not None and sim.coarse is not None
+        cuda.LAUNCHES.clear()
+        sim.run(2)
+        runs.append(sim.state)
+        for k in ("element_apply", "contract_G_Gw", "banded_sum_m3",
+                  "banded_sum_m9", "segment_sum_m6", "segment_sum_m36"):
+            assert cuda.LAUNCHES.get(k, 0) > 0, k
+        assert not cuda.LAUNCHES.get("segment_sum_m3", 0)
     assert torch.equal(runs[0].x, runs[1].x)
     assert torch.equal(runs[0].stats.energy, runs[1].stats.energy)

@@ -8,6 +8,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "mixedfem_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "mixedfem_tpu")
@@ -52,3 +54,39 @@ def test_sources_name_no_jax():
                 continue
             for name in names:
                 assert name.split(".")[0] not in FORBIDDEN, (path, name)
+
+
+def test_banded_sum_launcher_takes_cuda_tensors_only():
+    """K4's launcher refuses CPU tensors before touching the compiler; the
+    CPU path (ops/banded_scatter.py) counts no launch."""
+    import torch
+
+    from mixedfem_tpu_torch import cuda
+    from mixedfem_tpu_torch.ops import banded_scatter as bs
+
+    cuda.LAUNCHES.clear()
+    plan = bs.build_banded_scatter_plan(
+        [0, 1, 2, 3, 1, 2, 3, 4, 4, 0, 2, 5], 7, chunk=8, device="cpu")
+    i32 = torch.int32
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cuda.banded_sum(
+            plan.chunk_part_ptr, plan.grp_ptr, plan.grp_rows, plan.vert_ptr,
+            plan.vert_parts, torch.zeros(16, 3), 8, 7)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cuda.banded_sum(*(torch.zeros(n, dtype=i32) for n in (3, 9, 16, 8, 8)),
+                        torch.zeros(16, 9, dtype=torch.float64), 8, 7)
+    out = bs.scatter_add_sorted(plan, bs.pad_rows(plan, torch.ones(12, 3)))
+    assert out[:, 0].tolist() == [2, 2, 3, 2, 2, 1, 0]
+    assert sum(cuda.LAUNCHES.values()) == 0
+
+
+def test_banded_plan_defaults_to_the_card(monkeypatch):
+    """Without a device argument the banded plan is built for the card, and
+    raises where there is none rather than landing on the CPU."""
+    import torch
+
+    from mixedfem_tpu_torch.ops import banded_scatter as bs
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bs.build_banded_scatter_plan([0, 1, 2, 3], 4, chunk=4)

@@ -306,7 +306,7 @@ def test_trajectory_stats(trajectory):
 def test_step_rejects_uncovered_paths(beam):
     tm = beam["tm"]
     x0 = t64(beam["V"])
-    st = tnewton.init_state(tm, TConfig(**STEP), x0, torch.zeros_like(x0))
+    st = tnewton.init_state(tm, TConfig(**STEP), (), x0, torch.zeros_like(x0))
     for bad in (dict(solver="minres-kkt"), dict(variables=("stretch",)),
                 dict(rotation_warm_start=True)):
         with pytest.raises(NotImplementedError):
