@@ -11,14 +11,17 @@ failure:
 2. build: compile mixedfem_tpu_torch/csrc/kernels.cu with nvcc for sm_90a.
 3. kernels: hold K1 (element_apply), K2 (segment_sum at the widths the step
    uses: 3, 9, the coarse restriction's 6 and the coarse Galerkin sums'
-   36), K3 (contract_G_Gw) and K4 (banded_sum at 3 and 9, on the banded
-   beam's plan, W=896, and on the scene's plan of phase 6, whose vertex
-   ids are unordered, W=22,400) to their plain PyTorch versions at the
-   100k-tet shapes, in float32 (to 1e-5 of the output's scale: the kernels
-   sum in another order) and float64 (to 1e-12); time each kernel, its
+   36, whose plan splits long segments into pieces), K3 (contract_G_Gw)
+   and K4 (banded_sum at 3 and 9, on the banded beam's plan, W=896, and on
+   the scene's plan of phase 6, whose vertex ids are unordered, W=22,400)
+   to their plain PyTorch versions at the 100k-tet shapes, in float32 (to
+   1e-5 of the output's scale: the plain versions run index_add_, which
+   adds in another order on the card) and float64 (to 1e-12); time each
+   kernel (the whole wrapper call: K2 with pieces launches twice), its
    plain version and the one PyTorch call that computes the same function
    where there is one, and K4's rows also through K2 over the mesh's
-   incidence plan (the same vertex sum).
+   incidence plan (the same vertex sum); time K2 at m=36 over the pair
+   plan split at several piece lengths L, the sweep that chose L.
 4. main path: the bench's 100k-tet beam (bench.py:build(40, 25, 20),
    banded element order, x=0 face pinned, gravity; Stable-Neo-Hookean,
    BDF1, h=0.02, 5 Newton iterations, itr_tol 1e-4, two-level coarse space
@@ -215,18 +218,14 @@ def kernel_cases(mesh, cs, state, dt):
         ins = (plan.row_ptr, plan.slots, rows)
         return dict(
             name=name, replaces="mixedfem_tpu/ops/brick.py:442",
-            kernel=lambda pl, r: cuda.segment_sum(pl.row_ptr, pl.slots, r, pl.nseg),
-            plain=assembly.segment_sum_plain,
+            kernel=k2, plain=assembly.segment_sum_plain,
             library=lambda pl, r: torch.index_add(base, 0, seg, r),
-            make=lambda: (clone_plan(plan), rows.clone()),
+            make=lambda: (clone(plan), rows.clone()),
+            # what the function must move: rows, slots, row_ptr, out (the
+            # plan's piece arrays are not counted)
             bytes=nbytes(*ins) + plan.nseg * rows.shape[1] * rows.element_size(),
             flops=rows.numel(),
-        )
-
-    def clone_plan(plan):
-        return assembly.IncidencePlan(
-            row_ptr=plan.row_ptr.clone(), slots=plan.slots.clone(),
-            seg=plan.seg.clone(), nseg=plan.nseg,
+            npieces=plan.npieces,
         )
 
     k1_ins = (mesh.T, Gw, mesh.mass_coeff, mesh.free_mask, p)
@@ -263,27 +262,68 @@ def kernel_cases(mesh, cs, state, dt):
     ]
 
 
+def clone(obj):
+    """A copy of a plan dataclass with every tensor field cloned, nested
+    plans included."""
+    import dataclasses
+
+    def c(v):
+        if torch.is_tensor(v):
+            return v.clone()
+        return clone(v) if dataclasses.is_dataclass(v) else v
+
+    return dataclasses.replace(obj, **{
+        f.name: c(getattr(obj, f.name)) for f in dataclasses.fields(obj)})
+
+
+def k2(pl, rows):
+    """K2's launcher over incidence plan `pl`, pieces included."""
+    from mixedfem_tpu_torch import cuda
+
+    return cuda.segment_sum(pl.row_ptr, pl.slots, rows, pl.nseg, pl.piece_ptr,
+                            pl.seg_pieces)
+
+
+def plan_line(name, pl) -> str:
+    from mixedfem_tpu_torch.ops import assembly
+
+    longest = int(pl.row_ptr.diff().max()) if pl.nseg else 0
+    return (f"{name}: {pl.nseg} segments, {pl.nrows} rows, longest {longest}, "
+            f"L {assembly.PIECE_ROWS}, "
+            f"pieces {pl.npieces if pl.piece_ptr is not None else 0}")
+
+
+def piece_sweep(cs, rows36, Ls=(64, 128, 256, 512, 1024, 2**30)):
+    """K2 at m=36 (whole wrapper call) over the coarse pair plan split at
+    each piece length L (2**30: no pieces), device us per call."""
+    from mixedfem_tpu_torch.ops import assembly
+
+    seg = cs.pair_id.reshape(-1).cpu().numpy()
+    sets = [rows36, rows36.clone()]
+    out = {}
+    for L in Ls:
+        pl = assembly.build_incidence_plan(seg, cs.pair_plan.nseg,
+                                           rows36.device, piece_rows=L)
+        out[L] = device_ms(lambda r: k2(pl, r), [(r,) for r in sets]) * 1e3
+        log(f"  K2 m=36, L {L}: {pl.npieces if pl.piece_ptr is not None else 0} "
+            f"pieces, {out[L]:9.2f} us")
+    return out
+
+
 def k4_cases(plan, inc, rows3, rows9, label):
     """K4 at m=3 (matvec, rhs, inertia gradient) and m=9 (diagonal blocks)
     on `plan`, with the corner rows in element order padded to its Rp; K2
     over the mesh's incidence plan `inc` on the same rows is timed beside
     it (the same function, another design)."""
-    import dataclasses
-
     from mixedfem_tpu_torch import cuda
     from mixedfem_tpu_torch.ops import banded_scatter as bs
 
     Rp = plan.lidx.shape[0]
     R = inc.slots.shape[0]
     dev = rows3.device
-    seg = plan.part_vertex[plan.part_of_row]  # the vertex of every row
-
-    def clone(obj):
-        return dataclasses.replace(obj, **{
-            f.name: getattr(obj, f.name).clone()
-            for f in dataclasses.fields(obj)
-            if torch.is_tensor(getattr(obj, f.name))
-        })
+    # the vertex of every row, from K4's CSR (the zero padding rows: 0)
+    seg = torch.zeros(Rp, dtype=torch.int64, device=dev)
+    seg[plan.csr.slots.long()] = plan.csr.seg
 
     def case(rows):
         m = rows.shape[1]
@@ -293,12 +333,11 @@ def k4_cases(plan, inc, rows3, rows9, label):
             name=f"banded_sum_m{m}", label=label, W=plan.W,
             replaces="mixedfem_tpu/ops/pallas_scatter.py:100",
             kernel=lambda pl, r, _: cuda.banded_sum(
-                pl.chunk_part_ptr, pl.grp_ptr, pl.grp_rows, pl.vert_ptr,
-                pl.vert_parts, r, pl.chunk, pl.nv),
+                pl.csr.row_ptr, pl.csr.slots, r, pl.nv, pl.csr.piece_ptr,
+                pl.csr.seg_pieces),
             plain=lambda pl, r, _: bs.banded_sum_plain(pl, r),
             library=lambda pl, r, _: torch.index_add(base, 0, seg, r),
-            k2=lambda _, r, ip: cuda.segment_sum(ip.row_ptr, ip.slots, r[:R],
-                                                 ip.nseg),
+            k2=lambda _, r, ip: k2(ip, r[:R]),
             make=lambda: (clone(plan), rows.clone(), clone(inc)),
             # what the function must move: the rows, one int32 vertex id per
             # row and the output (the measure of K2's bound)
@@ -624,6 +663,9 @@ def main() -> int:
     log("phase 3: kernels at the 100k-tet shapes")
     mesh, config, state, cs = beam(40, 25, 20, torch.float32, "cuda")
     log(f"  E {mesh.nelem} nv {mesh.nv} aggregates {cs.naggr} ncd {cs.ncd}")
+    for name, pl in (("vertex plan", mesh.plan), ("aggregate plan", cs.agg_plan),
+                     ("pair plan", cs.pair_plan)):
+        log("  " + plan_line(name, pl))
     dt = 0.02
     cases32 = kernel_cases(mesh, cs, state, dt)
     errs = check_kernels(cases32, torch.float32, 1e-5)
@@ -637,9 +679,13 @@ def main() -> int:
                      dim=3, dtype="float32", device="cuda")
     log(f"  scene loaded in {time.perf_counter() - t0:.1f} s: E "
         f"{sim.mesh.nelem} nv {sim.mesh.nv} W {sim.matvec_plan.W} chunks "
-        f"{sim.matvec_plan.nchunks} partials {sim.matvec_plan.nparts}, "
-        f"aggregates {sim.coarse.naggr}")
+        f"{sim.matvec_plan.nchunks}, aggregates {sim.coarse.naggr}")
     beam_plan = opmod.build_banded_plan(mesh)
+    for name, pl in (("scene K4 plan", sim.matvec_plan.csr),
+                     ("beam K4 plan", beam_plan.csr),
+                     ("scene aggregate plan", sim.coarse.agg_plan),
+                     ("scene pair plan", sim.coarse.pair_plan)):
+        log("  " + plan_line(name, pl))
     beam_rows = step_inputs(mesh, state, dt)
     scene_rows = step_inputs(sim.mesh, sim.state, dt)
     k4_beam = k4_cases(beam_plan, mesh.plan, beam_rows["rows3"],
@@ -654,6 +700,8 @@ def main() -> int:
 
     check_kernels(k4_beam + k4_scene, torch.float64, 1e-12, cast=f64)
     timings = time_kernels(cases32, torch.float32)
+    sweep = piece_sweep(cs, next(c for c in cases32
+                                 if c["name"] == "segment_sum_m36")["make"]()[1])
     k4_beam_t = time_kernels(k4_beam, torch.float32)
     k4_scene_t = time_kernels(k4_scene, torch.float32)
     del k4_beam, beam_plan
@@ -707,6 +755,11 @@ def main() -> int:
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"],
         )
+        if name == "segment_sum_m36":
+            entry["piece_rows_us"] = sweep
+        c = next((c for c in cases32 if c["name"] == name), {})
+        if "npieces" in c:
+            entry["npieces"] = c["npieces"]
         if name in k4_other:
             o = k4_other[name]
             entry["shapes"] = t["key"]

@@ -4,8 +4,7 @@
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 // and loaded with ctypes. Every entry point launches on the stream it is
 // given, allocates nothing, and returns cudaGetLastError() of its launch.
-// Each kernel is a template over float (the benchmark's type) and double
-// (the trajectory check).
+// Each kernel is a template over float and double.
 //
 // K1 element_apply  replaces the gather/apply half of
 //     mixedfem_tpu/ops/brick.py:_matvec_kernel (via _matvec_call,
@@ -21,14 +20,28 @@
 //
 // K2 segment_sum  replaces mixedfem_tpu/ops/brick.py:_scatter_kernel (via
 //     _scatter_call, brick_scatter) and, with K1, the scatter half of
-//     _matvec_kernel. out[v, c] = sum over the slots j of segment v, in the
-//     plan's fixed order, of rows[slots[j], c]; one thread per (segment,
-//     column). Bound: bytes. rows (E*k*m), slots (E*k ints), row_ptr and
-//     out: ~6.8 MB (m=3) / ~17 MB (m=9) at 100k tets f32, 2 us / 5 us.
-//     Design: the static incidence plan (CSR of slot ids per vertex, built
-//     once on the host) turns the scatter into a gather, so the sum is
-//     deterministic and needs no atomics; neighbouring threads read
-//     neighbouring columns of one row.
+//     _matvec_kernel; it also sums the coarse space's restriction (m=6) and
+//     Galerkin blocks (m=36), XLA's segment_sum on the TPU.
+//     out[v, c] = sum over the slots j of segment v, in the plan's fixed
+//     order, of rows[slots[j], c].
+//     Bound: bytes. rows, slots, row_ptr and out, each once: 6.8 MB (m=3),
+//     17 MB (m=9) and 238 MB (m=36, 1.6M rows) at 100k tets f32, 2, 5 and
+//     71 us at 3.35 TB/s.
+//     The first design (a thread per (segment, column) walking its rows, a
+//     slot id then its row per step) took 610 us at m=36: 4,193-row tail.
+//     Design: the host plan (ops/assembly.py) splits a segment longer than
+//     L rows into consecutive pieces of at most L slots; a plan with pieces
+//     takes a second launch that sums each segment's partials in piece
+//     order. Each launch takes one of two schedules. Tile (rows wider than
+//     16 values, or pieces of 32 rows or more on average): one warp per
+//     piece loads 32 slot ids at once and gathers those rows into a tile in
+//     shared memory with cp.async (16, 8 or 4 bytes a copy), two tiles in
+//     turn so the next gather overlaps this sum; lane c adds column c (and
+//     c+32) in row order. Lane (narrow rows in short pieces, where staging
+//     cost more than it saved on the card): a thread per (piece, column)
+//     fetches 32 slot ids, then their values, all in flight, and adds them
+//     in order. No atomics. TMA and wgmma do not fit: TMA has no row
+//     gather, and a segmented sum does one add per value it loads.
 //
 // K3 contract_G_Gw  replaces mixedfem_tpu/ops/smallops.py:_tr_kernel (via
 //     _pallas_interleave, interleave_cols), the lane transpose that finishes
@@ -44,33 +57,16 @@
 //     the whole slice.
 //
 // K4 banded_sum  replaces mixedfem_tpu/ops/pallas_scatter.py:_make_kernel
-//     (via _scatter_call, scatter_add_sorted), the windowed segment sum of
-//     rows (Rp, m) in banded element order that carries banded_matvec and
-//     the once-per-Newton assemblies of every loaded scene. out[v] = sum of
-//     the rows whose vertex id is v. The TPU kernel keeps the whole (m,
-//     nv_pad) output in VMEM across a sequential grid and adds each chunk's
-//     one-hot product into a window of W vertices; here blocks run in no
-//     order, and W depends on the mesh (896 on the banded 100k-tet beam,
-//     22,400 when vertex ids are unordered), so a window in shared memory
-//     would not fit. Two stages, both in a fixed order, no atomics:
-//       stage 1 (banded_partial_kernel), one block per chunk of rows: the
-//         chunk's rows (one contiguous run of chunk*m values) are copied
-//         into shared memory with 16-byte loads, beside the chunk's slice
-//         of the plan; then one thread per (distinct destination of the
-//         chunk, column) sums that destination's rows in row order into a
-//         partial. Shared memory depends on the chunk and m (2048 rows:
-//         40 KB at m=3, 88 KB at m=9 in f32), not on W.
-//       stage 2 (segment_sum_kernel, K2's code): per (vertex, column), the
-//         partials of the chunks that touch the vertex, in chunk order.
-//     The host plan (ops/banded_scatter.py) lists the partials and both
-//     orders; the plain version adds in the same order.
-//     Bound: bytes. rows (Rp*m), the plan's index arrays (grp_rows Rp ints,
-//     vert_parts ~nv ints) and out (nv*m): ~7 MB at m=3 and ~16 MB at m=9
-//     at 100k tets f32 (rows alone 4.8 / 14.4 MB), 2 / 5 us at 3.35 TB/s.
-//     The partials (~nv*m, more where ids are unordered) make a round trip
-//     through L2. One block per chunk gives 196 blocks at 100k tets, under
-//     two per SM: each block's copy and sum are latency-bound, which is
-//     what holds K4 above its bound.
+//     (via _scatter_call, scatter_add_sorted): out[v] = sum of the rows
+//     (Rp, m), in banded element order, of vertex v; it carries the matvec
+//     and assemblies of every loaded scene. The TPU kept a window of W
+//     vertices of the output in VMEM across a sequential grid; on this card
+//     the same function is a per-vertex gather over a CSR of the banded rows
+//     (ops/banded_scatter.py; ascending, without the zero padding rows) with
+//     K2's code in one pass, so W does not enter. Bound: bytes. rows, an
+//     int32 vertex id per row and out: 6.7 / 16.9 MB (m=3 / 9) at 100k tets
+//     f32, 2.0 / 5.0 us. The first design (per-chunk partials, then a sum per
+//     vertex) took 21-30 us: 196 latency-bound blocks, partials through L2.
 
 #include <cuda_runtime.h>
 
@@ -79,15 +75,10 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kBandThreads = 512;
-// most shared memory a block may opt into on Hopper (227 KB)
-constexpr size_t kBandSmem = 227 * 1024;
-
-// bytes of a stage-1 block's index arrays (chunk row ids, chunk+1 offsets),
-// rounded up so that the rows after them are 16-byte aligned
-__host__ __device__ inline size_t band_index_bytes(int chunk) {
-  return ((2 * static_cast<size_t>(chunk) + 1) * sizeof(int) + 15) / 16 * 16;
-}
+// K2 / K4: warps per block, rows per tile, widest row (two columns a lane)
+constexpr int kSegWarps = 4;
+constexpr int kTile = 32;
+constexpr int kMaxWidth = 64;
 
 template <typename T>
 __global__ void element_apply_kernel(const int* __restrict__ tets,
@@ -132,22 +123,107 @@ __global__ void element_apply_kernel(const int* __restrict__ tets,
   }
 }
 
+// cp.async of B bytes to shared memory; commit a group; wait for all but one
+template <int B>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (B == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src), "n"(B) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+__device__ __forceinline__ void cp_async_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
+
+#define SEG_PARAMS const int *__restrict__ ptr, const int *__restrict__ slots, \
+    const T *__restrict__ rows, T *__restrict__ out, int n_seg, int m
+
+// K2's and K4's two schedules sum, for segment g, rows[slots[j]] (m values
+// of T) for j in [ptr[g], ptr[g+1]) in order into out[g]; slots == nullptr
+// means slots[j] = j (partials). Tile: one warp per segment, slot ids a tile
+// ahead, copies in units of B bytes, NC = ceil(m / 32) columns a lane.
+template <typename T, int B, int NC>
+__device__ __forceinline__ void tile_segment_sum(SEG_PARAMS) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x & 31, g = blockIdx.x * kSegWarps + (threadIdx.x >> 5);
+  if (g >= n_seg) return;  // the whole warp leaves together
+  const int row_bytes = m * static_cast<int>(sizeof(T)), per_row = row_bytes / B;
+  char* tiles = reinterpret_cast<char*>(smem_raw) + (threadIdx.x >> 5) * 2 * kTile * row_bytes;
+  const char* src = reinterpret_cast<const char*>(rows);
+  const int beg = ptr[g], n = ptr[g + 1] - beg;
+  auto slot_of = [&](int j) { return j < n ? (slots != nullptr ? slots[beg + j] : beg + j) : 0; };
+  T acc[NC] = {};
+  // round t gathers tile t into buffer t % 2 and sums tile t - 1
+  int next = slot_of(lane);
+  for (int t0 = 0, cur = 0; t0 < n + kTile; t0 += kTile, cur ^= 1) {
+    // every lane runs the same copy rounds, so the shuffle sees the warp
+    const int units = min(max(n - t0, 0), kTile) * per_row;
+    for (int q0 = 0; q0 < units; q0 += 32) {
+      const int q = q0 + lane, r = q / per_row;
+      const int sid = __shfl_sync(0xffffffffu, next, r & 31);
+      if (q < units) {
+        const int u = (q - r * per_row) * B;
+        cp_async<B>(tiles + (cur * kTile + r) * row_bytes + u,
+                    src + static_cast<size_t>(sid) * row_bytes + u);
+      }
+    }
+    cp_async_commit();                  // (empty after the last tile)
+    next = slot_of(t0 + kTile + lane);  // ids of the next tile
+    if (t0 == 0) continue;
+    cp_async_wait_one();                // tile t - 1 has landed
+    __syncwarp();
+    const T* tile = reinterpret_cast<const T*>(tiles + (cur ^ 1) * kTile * row_bytes);
+    const int nr = min(n - (t0 - kTile), kTile);
+#pragma unroll
+    for (int k = 0; k < NC; ++k) {
+      const int c = lane + 32 * k;
+      if (c < m) {
+#pragma unroll 4
+        for (int r = 0; r < nr; ++r) acc[k] += tile[r * m + c];
+      }
+    }
+    __syncwarp();  // before the next round overwrites this buffer
+  }
+#pragma unroll
+  for (int k = 0; k < NC; ++k)
+    if (lane + 32 * k < m) out[static_cast<size_t>(g) * m + lane + 32 * k] = acc[k];
+}
+
+// Lane: one thread per (segment, column); up to 32 slot ids, then their
+// values, in flight at once. Takes slots != nullptr only.
 template <typename T>
-__global__ void segment_sum_kernel(const int* __restrict__ row_ptr,
-                                   const int* __restrict__ slots,
-                                   const T* __restrict__ rows,
-                                   T* __restrict__ out, int n_seg, int m) {
-  const long long idx =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+__device__ __forceinline__ void lane_segment_sum(SEG_PARAMS) {
+  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= static_cast<long long>(n_seg) * m) return;
-  const int v = static_cast<int>(idx / m);
-  const int col = static_cast<int>(idx % m);
+  const int g = static_cast<int>(idx / m), c = static_cast<int>(idx - static_cast<long long>(g) * m);
+  const int end = ptr[g + 1];
   T acc = T(0);
-  const int end = row_ptr[v + 1];
-  for (int j = row_ptr[v]; j < end; ++j)
-    acc += rows[static_cast<size_t>(slots[j]) * m + col];
+  for (int j0 = ptr[g]; j0 < end; j0 += kTile) {
+    int id[kTile];
+    T x[kTile];
+#pragma unroll
+    for (int i = 0; i < kTile; ++i) id[i] = j0 + i < end ? slots[j0 + i] : -1;
+#pragma unroll
+    for (int i = 0; i < kTile; ++i) x[i] = id[i] >= 0 ? rows[static_cast<size_t>(id[i]) * m + c] : T(0);
+#pragma unroll
+    for (int i = 0; i < kTile; ++i)
+      if (j0 + i < end) acc += x[i];
+  }
   out[idx] = acc;
 }
+
+// K2, and K4 under its own name so that a profile tells the two apart
+#define SEG_KERNELS(NAME)                                                    \
+  template <typename T, int B, int NC>                                       \
+  __global__ void __launch_bounds__(kSegWarps * 32) NAME##_tile(SEG_PARAMS) { \
+    tile_segment_sum<T, B, NC>(ptr, slots, rows, out, n_seg, m);             \
+  }                                                                          \
+  template <typename T>                                                      \
+  __global__ void NAME##_lane(SEG_PARAMS) {                                  \
+    lane_segment_sum<T>(ptr, slots, rows, out, n_seg, m);                    \
+  }
+SEG_KERNELS(segment_sum_kernel)
+SEG_KERNELS(banded_sum_kernel)
 
 template <typename T>
 __global__ void contract_G_Gw_kernel(const T* __restrict__ D,
@@ -198,118 +274,60 @@ __global__ void contract_G_Gw_kernel(const T* __restrict__ D,
   }
 }
 
-// Stage 1 of K4: block c sums the rows of chunk c per distinct destination.
-// part[p, col] = sum over k in [grp_ptr[p], grp_ptr[p+1]) of
-//   rows[c*chunk + grp_rows[k], col], for the partials p of chunk c.
-// The chunk's rows own the grp entries [c*chunk, (c+1)*chunk), so the block
-// stages its grp_rows and grp_ptr slices in shared memory beside all of its
-// rows (16-byte copies when `vec`: the chunk's run of chunk*m values starts
-// and ends 16-byte aligned); one thread per (partial, column) then sums
-// with shared-memory reads only.
-template <typename T>
-__global__ void __launch_bounds__(kBandThreads)
-banded_partial_kernel(const int* __restrict__ chunk_part_ptr,
-                      const int* __restrict__ grp_ptr,
-                      const int* __restrict__ grp_rows,
-                      const T* __restrict__ rows, T* __restrict__ part,
-                      int chunk, int m, bool vec) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  int* s_rows = reinterpret_cast<int*>(smem_raw);  // chunk local row ids
-  int* s_ptr = s_rows + chunk;                      // <= chunk+1 offsets
-  T* tile = reinterpret_cast<T*>(smem_raw + band_index_bytes(chunk));
-  const int c = blockIdx.x;
-  const int row0 = c * chunk;
-  const int p0 = chunk_part_ptr[c];
-  const int np = chunk_part_ptr[c + 1] - p0;
-  for (int i = threadIdx.x; i < chunk; i += blockDim.x)
-    s_rows[i] = grp_rows[row0 + i];
-  for (int i = threadIdx.x; i <= np; i += blockDim.x)
-    s_ptr[i] = grp_ptr[p0 + i] - row0;
-  const int n = chunk * m;
-  const T* src = rows + static_cast<size_t>(row0) * m;
-  if (vec) {
-    const uint4* s4 = reinterpret_cast<const uint4*>(src);
-    uint4* t4 = reinterpret_cast<uint4*>(tile);
-    const int n4 = n / static_cast<int>(sizeof(uint4) / sizeof(T));
-    for (int i = threadIdx.x; i < n4; i += blockDim.x) t4[i] = s4[i];
-  } else {
-    for (int i = threadIdx.x; i < n; i += blockDim.x) tile[i] = src[i];
-  }
-  __syncthreads();
-  T* dst = part + static_cast<size_t>(p0) * m;
-  for (int it = threadIdx.x; it < np * m; it += blockDim.x) {
-    const int p = it / m;
-    const int j = it - p * m;
-    const int end = s_ptr[p + 1];
-    T acc = T(0);
-    for (int k = s_ptr[p]; k < end; ++k) acc += tile[s_rows[k] * m + j];
-    dst[it] = acc;
-  }
-}
-
 inline unsigned int blocks_for(long long n) {
   return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
 }
 
-template <typename T>
-int launch_element_apply(const int* tets, const T* gw, const T* mass,
-                         const T* free_mask, const T* p, T* out, int n_elem,
-                         void* stream) {
-  if (n_elem > 0)
-    element_apply_kernel<T><<<blocks_for(n_elem), kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-        tets, gw, mass, free_mask, p, out, n_elem);
-  return static_cast<int>(cudaGetLastError());
+template <typename T, int B, int NC>
+cudaError_t launch_tile(bool banded, SEG_PARAMS, cudaStream_t s) {
+  auto kernel = banded ? banded_sum_kernel_tile<T, B, NC> : segment_sum_kernel_tile<T, B, NC>;
+  const size_t smem = static_cast<size_t>(kSegWarps) * 2 * kTile * m * sizeof(T);
+  cudaError_t err = cudaSuccess;
+  if (smem > 48 * 1024)  // opt in above the default 48 KB
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<(n_seg + kSegWarps - 1) / kSegWarps, kSegWarps * 32, smem, s>>>(ptr, slots, rows, out, n_seg, m);
+  return cudaGetLastError();
 }
 
+// one launch over the CSR `ptr` of n_seg segments and n_rows slots: the lane
+// schedule for rows of up to 16 values in segments of under 32 rows on
+// average, else (and for partials) the tile schedule in the widest copy unit
+// that the rows' bytes and their address allow
 template <typename T>
-int launch_segment_sum(const int* row_ptr, const int* slots, const T* rows,
-                       T* out, int n_seg, int m, void* stream) {
-  const long long n = static_cast<long long>(n_seg) * m;
-  if (n > 0)
-    segment_sum_kernel<T><<<blocks_for(n), kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-        row_ptr, slots, rows, out, n_seg, m);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_contract_G_Gw(const T* D, const T* dphi, const T* Hs, const T* vol,
-                         T* G, T* Gw, int n_elem, void* stream) {
-  if (n_elem > 0)
-    contract_G_Gw_kernel<T><<<blocks_for(n_elem), kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-        D, dphi, Hs, vol, G, Gw, n_elem);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_banded_sum(const int* chunk_part_ptr, const int* grp_ptr,
-                      const int* grp_rows, const int* vert_ptr,
-                      const int* vert_parts, const T* rows, T* part, T* out,
-                      int nchunks, int chunk, int nv, int m, void* stream) {
-  if (chunk <= 0 || m <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t row_bytes = static_cast<size_t>(chunk) * m * sizeof(T);
-  const size_t smem = band_index_bytes(chunk) + row_bytes;
-  if (smem > kBandSmem) return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec =
-      reinterpret_cast<uintptr_t>(rows) % 16 == 0 && row_bytes % 16 == 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (nchunks > 0) {
-    cudaError_t err = cudaFuncSetAttribute(
-        banded_partial_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    banded_partial_kernel<T><<<nchunks, kBandThreads, smem, s>>>(
-        chunk_part_ptr, grp_ptr, grp_rows, rows, part, chunk, m, vec);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+cudaError_t launch_cols(bool banded, SEG_PARAMS, long long n_rows, cudaStream_t s) {
+  if (n_seg <= 0) return cudaSuccess;
+  if (slots != nullptr && m <= 16 && n_rows < static_cast<long long>(kTile) * n_seg) {
+    auto kernel = banded ? banded_sum_kernel_lane<T> : segment_sum_kernel_lane<T>;
+    kernel<<<blocks_for(static_cast<long long>(n_seg) * m), kThreads, 0, s>>>(ptr, slots, rows, out, n_seg, m);
+    return cudaGetLastError();
   }
-  const long long n = static_cast<long long>(nv) * m;
-  if (n > 0)
-    segment_sum_kernel<T><<<blocks_for(n), kThreads, 0, s>>>(
-        vert_ptr, vert_parts, part, out, nv, m);
-  return static_cast<int>(cudaGetLastError());
+  const size_t bytes = static_cast<size_t>(m) * sizeof(T);
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(rows);
+  const int unit = bytes % 16 == 0 && addr % 16 == 0  ? 16
+                   : bytes % 8 == 0 && addr % 8 == 0 ? 8 : 4;
+#define MF_TILE(B, NC) launch_tile<T, B, NC>(banded, ptr, slots, rows, out, n_seg, m, s)
+  if (m > 32) return unit == 16 ? MF_TILE(16, 2) : unit == 8 ? MF_TILE(8, 2) : MF_TILE(4, 2);
+  return unit == 16 ? MF_TILE(16, 1) : unit == 8 ? MF_TILE(8, 1) : MF_TILE(4, 1);
+#undef MF_TILE
+}
+
+// K2 and K4 over n_slots slots: without pieces (piece_ptr == nullptr) one
+// launch over row_ptr; with pieces one over piece_ptr into part (n_pieces,
+// m), then one over seg_pieces that sums each segment's partials in order.
+template <typename T>
+int launch_segment_sum(bool banded, const int* row_ptr, const int* slots,
+                       const int* piece_ptr, const int* seg_pieces, const T* rows,
+                       T* part, T* out, int n_seg, int n_pieces, int n_slots,
+                       int m, void* stream) {
+  if (m <= 0 || m > kMaxWidth) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = piece_ptr == nullptr
+      ? launch_cols<T>(banded, row_ptr, slots, rows, out, n_seg, m, n_slots, s)
+      : launch_cols<T>(banded, piece_ptr, slots, rows, part, n_pieces, m, n_slots, s);
+  if (err == cudaSuccess && piece_ptr != nullptr)
+    err = launch_cols<T>(banded, seg_pieces, nullptr, part, out, n_seg, m, n_pieces, s);
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -320,64 +338,44 @@ const char* mf_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-int mf_element_apply_f32(const int* tets, const float* gw, const float* mass,
-                         const float* free_mask, const float* p, float* out,
-                         int n_elem, void* stream) {
-  return launch_element_apply<float>(tets, gw, mass, free_mask, p, out, n_elem,
-                                     stream);
-}
+// the entry points of one float type T, suffixed _f32 or _f64
+#define MF_ENTRY_POINTS(T, SFX)                                                \
+  int mf_element_apply_##SFX(const int* tets, const T* gw, const T* mass,     \
+                             const T* free_mask, const T* p, T* out,          \
+                             int n_elem, void* stream) {                      \
+    if (n_elem > 0)                                                            \
+      element_apply_kernel<T><<<blocks_for(n_elem), kThreads, 0,              \
+                                static_cast<cudaStream_t>(stream)>>>(         \
+          tets, gw, mass, free_mask, p, out, n_elem);                          \
+    return static_cast<int>(cudaGetLastError());                               \
+  }                                                                            \
+  int mf_contract_G_Gw_##SFX(const T* D, const T* dphi, const T* Hs,          \
+                             const T* vol, T* G, T* Gw, int n_elem,           \
+                             void* stream) {                                  \
+    if (n_elem > 0)                                                            \
+      contract_G_Gw_kernel<T><<<blocks_for(n_elem), kThreads, 0,              \
+                                static_cast<cudaStream_t>(stream)>>>(         \
+          D, dphi, Hs, vol, G, Gw, n_elem);                                    \
+    return static_cast<int>(cudaGetLastError());                               \
+  }                                                                            \
+  int mf_segment_sum_##SFX(const int* row_ptr, const int* slots,              \
+                           const int* piece_ptr, const int* seg_pieces,       \
+                           const T* rows, T* part, T* out, int n_seg,         \
+                           int n_pieces, int n_slots, int m, void* stream) {  \
+    return launch_segment_sum<T>(false, row_ptr, slots, piece_ptr, seg_pieces, \
+                                 rows, part, out, n_seg, n_pieces, n_slots,   \
+                                 m, stream);                                  \
+  }                                                                            \
+  int mf_banded_sum_##SFX(const int* row_ptr, const int* slots,               \
+                          const int* piece_ptr, const int* seg_pieces,        \
+                          const T* rows, T* part, T* out, int nv,             \
+                          int n_pieces, int n_slots, int m, void* stream) {   \
+    return launch_segment_sum<T>(true, row_ptr, slots, piece_ptr, seg_pieces,  \
+                                 rows, part, out, nv, n_pieces, n_slots, m,   \
+                                 stream);                                     \
+  }
 
-int mf_element_apply_f64(const int* tets, const double* gw,
-                         const double* mass, const double* free_mask,
-                         const double* p, double* out, int n_elem,
-                         void* stream) {
-  return launch_element_apply<double>(tets, gw, mass, free_mask, p, out,
-                                      n_elem, stream);
-}
-
-int mf_segment_sum_f32(const int* row_ptr, const int* slots, const float* rows,
-                       float* out, int n_seg, int m, void* stream) {
-  return launch_segment_sum<float>(row_ptr, slots, rows, out, n_seg, m,
-                                   stream);
-}
-
-int mf_segment_sum_f64(const int* row_ptr, const int* slots,
-                       const double* rows, double* out, int n_seg, int m,
-                       void* stream) {
-  return launch_segment_sum<double>(row_ptr, slots, rows, out, n_seg, m,
-                                    stream);
-}
-
-int mf_contract_G_Gw_f32(const float* D, const float* dphi, const float* Hs,
-                         const float* vol, float* G, float* Gw, int n_elem,
-                         void* stream) {
-  return launch_contract_G_Gw<float>(D, dphi, Hs, vol, G, Gw, n_elem, stream);
-}
-
-int mf_contract_G_Gw_f64(const double* D, const double* dphi,
-                         const double* Hs, const double* vol, double* G,
-                         double* Gw, int n_elem, void* stream) {
-  return launch_contract_G_Gw<double>(D, dphi, Hs, vol, G, Gw, n_elem, stream);
-}
-
-int mf_banded_sum_f32(const int* chunk_part_ptr, const int* grp_ptr,
-                      const int* grp_rows, const int* vert_ptr,
-                      const int* vert_parts, const float* rows, float* part,
-                      float* out, int nchunks, int chunk, int nv, int m,
-                      void* stream) {
-  return launch_banded_sum<float>(chunk_part_ptr, grp_ptr, grp_rows, vert_ptr,
-                                  vert_parts, rows, part, out, nchunks, chunk,
-                                  nv, m, stream);
-}
-
-int mf_banded_sum_f64(const int* chunk_part_ptr, const int* grp_ptr,
-                      const int* grp_rows, const int* vert_ptr,
-                      const int* vert_parts, const double* rows, double* part,
-                      double* out, int nchunks, int chunk, int nv, int m,
-                      void* stream) {
-  return launch_banded_sum<double>(chunk_part_ptr, grp_ptr, grp_rows, vert_ptr,
-                                   vert_parts, rows, part, out, nchunks, chunk,
-                                   nv, m, stream);
-}
+MF_ENTRY_POINTS(float, f32)
+MF_ENTRY_POINTS(double, f64)
 
 }  // extern "C"

@@ -90,9 +90,9 @@ def _load():
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     for suffix in ("f32", "f64"):
         getattr(lib, f"mf_element_apply_{suffix}").argtypes = [vp] * 6 + [i32, vp]
-        getattr(lib, f"mf_segment_sum_{suffix}").argtypes = [vp] * 4 + [i32, i32, vp]
         getattr(lib, f"mf_contract_G_Gw_{suffix}").argtypes = [vp] * 6 + [i32, vp]
-        getattr(lib, f"mf_banded_sum_{suffix}").argtypes = [vp] * 8 + [i32] * 4 + [vp]
+        for name in ("segment_sum", "banded_sum"):
+            getattr(lib, f"mf_{name}_{suffix}").argtypes = [vp] * 7 + [i32] * 4 + [vp]
         for name in ("element_apply", "segment_sum", "contract_G_Gw",
                      "banded_sum"):
             getattr(lib, f"mf_{name}_{suffix}").restype = i32
@@ -154,20 +154,51 @@ def element_apply(T, Gw, mass, free_mask, p) -> torch.Tensor:
     return out
 
 
-def segment_sum(row_ptr, slots, rows, nseg: int) -> torch.Tensor:
-    """K2: out[v] = sum of rows[slots[row_ptr[v]:row_ptr[v+1]]], (nseg, m)."""
+# K2 and K4 give each lane of a warp at most two of a row's columns
+MAX_WIDTH = 64
+
+
+def _gather(fn_name, row_ptr, slots, rows, nseg, piece_ptr, seg_pieces):
+    """Check and launch K2 or K4 over the CSR (row_ptr, slots) of `nseg`
+    segments, or over its pieces (piece_ptr) and then each segment's
+    partials (seg_pieces), as ops/assembly.py plans them."""
     sfx = _float_dtype(rows)
     dev, dt = rows.device, rows.dtype
     R, m = rows.shape
+    if not 0 < m <= MAX_WIDTH:
+        raise ValueError(f"rows of width {m}: {fn_name} takes 1 to {MAX_WIDTH}")
     _check(row_ptr, "row_ptr", (nseg + 1,), torch.int32, dev)
-    _check(slots, "slots", (R,), torch.int32, dev)
+    _check(slots, "slots", (slots.shape[0],), torch.int32, dev)
     _check(rows, "rows", (R, m), dt, dev)
+    if (piece_ptr is None) != (seg_pieces is None):
+        raise ValueError("piece_ptr and seg_pieces come together")
     out = torch.empty((nseg, m), dtype=dt, device=dev)
+    npieces, part = 0, None
+    if piece_ptr is not None:
+        npieces = piece_ptr.shape[0] - 1
+        _check(piece_ptr, "piece_ptr", (npieces + 1,), torch.int32, dev)
+        _check(seg_pieces, "seg_pieces", (nseg + 1,), torch.int32, dev)
+        part = torch.empty((npieces, m), dtype=dt, device=dev)
     _launch(
-        "segment_sum", sfx, row_ptr.data_ptr(), slots.data_ptr(),
-        rows.data_ptr(), out.data_ptr(), nseg, m,
+        fn_name, sfx, row_ptr.data_ptr(), slots.data_ptr(),
+        None if piece_ptr is None else piece_ptr.data_ptr(),
+        None if seg_pieces is None else seg_pieces.data_ptr(),
+        rows.data_ptr(), None if part is None else part.data_ptr(),
+        out.data_ptr(), nseg, npieces, slots.shape[0], m,
     )
-    LAUNCHES[f"segment_sum_m{m}"] += 1
+    return out
+
+
+def segment_sum(row_ptr, slots, rows, nseg: int, piece_ptr=None,
+                seg_pieces=None) -> torch.Tensor:
+    """K2: out[v] = sum of rows[slots[row_ptr[v]:row_ptr[v+1]]] in slot
+    order, (nseg, m); with pieces, per piece and then per segment in piece
+    order. One count per call, whatever it launches."""
+    if slots.shape[0] != rows.shape[0]:
+        raise ValueError(f"{rows.shape[0]} rows for {slots.shape[0]} slots")
+    out = _gather("segment_sum", row_ptr, slots, rows, nseg, piece_ptr,
+                  seg_pieces)
+    LAUNCHES[f"segment_sum_m{rows.shape[1]}"] += 1
     return out
 
 
@@ -190,42 +221,15 @@ def contract_G_Gw(D, dphi, Hs, vols):
     return G, Gw
 
 
-# K4's stage-1 block holds the chunk's row ids and offsets and all of its
-# rows in shared memory, at most the 227 KB a block may opt into on Hopper
-_BAND_SMEM = 227 * 1024
-
-
-def _band_smem_fits(chunk: int, m: int, itemsize: int) -> bool:
-    index_bytes = ((2 * chunk + 1) * 4 + 15) // 16 * 16
-    return index_bytes + chunk * m * itemsize <= _BAND_SMEM
-
-
-def banded_sum(chunk_part_ptr, grp_ptr, grp_rows, vert_ptr, vert_parts, rows,
-               chunk: int, nv: int) -> torch.Tensor:
-    """K4: out[v] = sum of the rows (Rp, m) whose vertex is v, per chunk of
-    `chunk` rows into partials, then per vertex in chunk order, (nv, m)."""
-    sfx = _float_dtype(rows)
-    dev, dt = rows.device, rows.dtype
-    Rp, m = rows.shape
-    if chunk <= 0 or Rp % chunk:
-        raise ValueError(f"{Rp} rows are not a whole number of {chunk}-row chunks")
-    if not _band_smem_fits(chunk, m, rows.element_size()):
-        raise ValueError(f"a chunk of {chunk} rows of width {m} does not fit "
-                         "shared memory")
-    nchunks = Rp // chunk
-    P = vert_parts.shape[0]
-    _check(chunk_part_ptr, "chunk_part_ptr", (nchunks + 1,), torch.int32, dev)
-    _check(grp_ptr, "grp_ptr", (P + 1,), torch.int32, dev)
-    _check(grp_rows, "grp_rows", (Rp,), torch.int32, dev)
-    _check(vert_ptr, "vert_ptr", (nv + 1,), torch.int32, dev)
-    _check(vert_parts, "vert_parts", (P,), torch.int32, dev)
-    _check(rows, "rows", (Rp, m), dt, dev)
-    part = torch.empty((P, m), dtype=dt, device=dev)
-    out = torch.empty((nv, m), dtype=dt, device=dev)
-    _launch(
-        "banded_sum", sfx, chunk_part_ptr.data_ptr(), grp_ptr.data_ptr(),
-        grp_rows.data_ptr(), vert_ptr.data_ptr(), vert_parts.data_ptr(),
-        rows.data_ptr(), part.data_ptr(), out.data_ptr(), nchunks, chunk, nv, m,
-    )
-    LAUNCHES[f"banded_sum_m{m}"] += 1
+def banded_sum(row_ptr, slots, rows, nv: int, piece_ptr=None,
+               seg_pieces=None) -> torch.Tensor:
+    """K4: out[v] = sum of the rows (Rp, m) in banded element order whose
+    vertex is v, through the per-vertex CSR (row_ptr, slots) of those rows
+    (ascending; rows that no slot names, the zero padding, are left out),
+    (nv, m)."""
+    if slots.shape[0] > rows.shape[0]:
+        raise ValueError(f"{rows.shape[0]} rows for {slots.shape[0]} slots")
+    out = _gather("banded_sum", row_ptr, slots, rows, nv, piece_ptr,
+                  seg_pieces)
+    LAUNCHES[f"banded_sum_m{rows.shape[1]}"] += 1
     return out

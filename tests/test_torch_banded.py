@@ -71,29 +71,24 @@ def test_plan_matches_jax(which):
 
 
 @pytest.mark.parametrize("which", ["banded", "shuffled"])
-def test_fixed_order_plan(which):
-    """K4's plan: each chunk's partials are its distinct vertices, ascending,
-    each holding that vertex's rows of the chunk in row order; each vertex
-    lists its partials in chunk order."""
+def test_vertex_csr(which):
+    """K4's plan: per vertex, the rows (before padding) that target it, in
+    ascending order; every row once, the zero padding rows in no vertex's
+    list, and no pieces (no vertex has more than L rows)."""
     V, T = _meshes()[which]
     plan = bs.build_banded_scatter_plan(T.reshape(-1), len(V), chunk=CHUNK,
                                         device="cpu")
-    Rp = plan.lidx.shape[0]
-    ids = np.concatenate([T.reshape(-1), np.full(Rp - T.size, T[-1, -1])])
-    cpp, gp, gr = (plan.chunk_part_ptr.numpy(), plan.grp_ptr.numpy(),
-                   plan.grp_rows.numpy())
-    pv = plan.part_vertex.numpy()
-    for c in range(plan.nchunks):
-        blk = ids[c * CHUNK:(c + 1) * CHUNK]
-        np.testing.assert_array_equal(pv[cpp[c]:cpp[c + 1]], np.unique(blk))
-        for p in range(cpp[c], cpp[c + 1]):
-            rows = gr[gp[p]:gp[p + 1]]
-            np.testing.assert_array_equal(rows, np.nonzero(blk == pv[p])[0])
-    vp, vpt = plan.vert_parts.numpy(), plan.vert_ptr.numpy()
-    chunk_of = np.searchsorted(cpp, np.arange(plan.nparts), side="right") - 1
-    for v in range(plan.nv):
-        parts = vp[vpt[v]:vpt[v + 1]]
-        assert np.all(pv[parts] == v) and np.all(np.diff(chunk_of[parts]) > 0)
+    csr = plan.csr
+    R = T.size
+    assert plan.nrows == R < plan.lidx.shape[0] and csr.nseg == len(V)
+    assert csr.piece_ptr is None and csr.npieces == len(V)
+    row_ptr, slots = csr.row_ptr.numpy(), csr.slots.numpy()
+    assert sorted(slots.tolist()) == list(range(R))
+    ids = T.reshape(-1)
+    for v in range(len(V)):
+        np.testing.assert_array_equal(slots[row_ptr[v]:row_ptr[v + 1]],
+                                      np.nonzero(ids == v)[0])
+    np.testing.assert_array_equal(csr.seg.numpy(), ids[slots])
 
 
 @pytest.mark.parametrize("which", ["banded", "shuffled"])
@@ -144,9 +139,11 @@ def test_build_banded_plan(beam):
     """The port's own plan of the mesh equals the JAX plan carried across."""
     got = top.build_banded_plan(beam["tm"], chunk=STEP_CHUNK)
     want = beam["tplan"]
-    for f in ("lidx", "win_start", "chunk_part_ptr", "grp_ptr", "grp_rows",
-              "vert_ptr", "vert_parts", "part_of_row", "part_vertex"):
+    for f in ("lidx", "win_start"):
         assert torch.equal(getattr(got, f), getattr(want, f)), f
+    for f in ("row_ptr", "slots", "seg"):
+        assert torch.equal(getattr(got.csr, f), getattr(want.csr, f)), f
+    assert got.csr.piece_ptr is None and want.csr.piece_ptr is None
     assert (got.W, got.nrows, got.nv) == (want.W, want.nrows, want.nv)
 
 

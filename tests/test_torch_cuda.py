@@ -157,26 +157,54 @@ def _k4_meshes():
     }, len(V)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_segment_sum_with_pieces_matches_plain(card, dtype):
+    """K2 over plans that split long segments into pieces (two launches,
+    one count), at m = 36, 9, 6 and 3: piece bounds and the row count fall
+    off multiples of 32 and of L, and one segment is empty."""
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    rng = np.random.default_rng(0)
+    lens = np.concatenate([rng.integers(1, 200, 200),
+                           rng.integers(257, 1500, 20), [4193, 0, 256, 257, 33]])
+    seg = np.repeat(np.arange(len(lens)), lens)
+    rng.shuffle(seg)
+    assert len(seg) % 32
+    g = torch.Generator(device=card).manual_seed(0)
+    for L in (100, 256):
+        plan = assembly.build_incidence_plan(seg, len(lens), card, piece_rows=L)
+        assert plan.piece_ptr is not None
+        for m in (36, 9, 6, 3):
+            rows = torch.randn(len(seg), m, generator=g, device=card, dtype=dtype)
+            cuda.LAUNCHES.clear()
+            got = assembly.segment_sum(plan, rows[:, None])
+            assert dict(cuda.LAUNCHES) == {f"segment_sum_m{m}": 1}
+            ref = assembly.segment_sum_plain(plan, rows)
+            torch.cuda.synchronize()
+            scale = ref.abs().max().item()
+            assert (got - ref).abs().max().item() <= tol * scale, (L, m)
+
+
 @pytest.mark.parametrize("chunk", [512, 54])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_banded_sum_matches_plain(card, dtype, chunk):
-    """K4 at both window widths, m = 3 and 9, a row count that is not a
-    multiple of the chunk; a chunk of 54 rows also takes the copy of rows
-    that are not a whole number of 16-byte units."""
+    """K4 at both window widths, m = 3 and 9, over 1997 tets: a row count
+    that is a multiple of neither 32 nor the chunk, so the last warp's tile
+    is partial and zero padding rows follow the rows."""
     tol = 1e-12 if dtype == torch.float64 else 1e-5
     meshes, nv = _k4_meshes()
     g = torch.Generator(device=card).manual_seed(0)
     for name, T in meshes.items():
+        T = T[:-3]
         plan = bs.build_banded_scatter_plan(T.reshape(-1), nv, chunk=chunk,
                                             device=card)
-        assert T.size % chunk and (plan.W >= nv if name == "shuffled"
-                                   else plan.W < nv)
+        assert T.size % chunk and T.size % 32 and (
+            plan.W >= nv if name == "shuffled" else plan.W < nv)
         for m in (3, 9):
             rows = bs.pad_rows(plan, torch.randn(T.size, m, generator=g,
                                                  device=card, dtype=dtype))
             cuda.LAUNCHES.clear()
             got = bs.scatter_add_sorted(plan, rows)
-            assert cuda.LAUNCHES[f"banded_sum_m{m}"] == 1
+            assert dict(cuda.LAUNCHES) == {f"banded_sum_m{m}": 1}
             ref = bs.banded_sum_plain(plan, rows)
             torch.cuda.synchronize()
             scale = ref.abs().max().item()

@@ -69,12 +69,11 @@ def test_banded_sum_launcher_takes_cuda_tensors_only():
         [0, 1, 2, 3, 1, 2, 3, 4, 4, 0, 2, 5], 7, chunk=8, device="cpu")
     i32 = torch.int32
     with pytest.raises(ValueError, match="CUDA tensors"):
-        cuda.banded_sum(
-            plan.chunk_part_ptr, plan.grp_ptr, plan.grp_rows, plan.vert_ptr,
-            plan.vert_parts, torch.zeros(16, 3), 8, 7)
+        cuda.banded_sum(plan.csr.row_ptr, plan.csr.slots, torch.zeros(16, 3), 7)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        cuda.banded_sum(*(torch.zeros(n, dtype=i32) for n in (3, 9, 16, 8, 8)),
-                        torch.zeros(16, 9, dtype=torch.float64), 8, 7)
+        cuda.banded_sum(*(torch.zeros(n, dtype=i32) for n in (8, 12)),
+                        torch.zeros(16, 9, dtype=torch.float64), 7,
+                        *(torch.zeros(n, dtype=i32) for n in (10, 8)))
     out = bs.scatter_add_sorted(plan, bs.pad_rows(plan, torch.ones(12, 3)))
     assert out[:, 0].tolist() == [2, 2, 3, 2, 2, 1, 0]
     assert sum(cuda.LAUNCHES.values()) == 0

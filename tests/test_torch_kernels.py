@@ -7,8 +7,10 @@ JAX package's functions on the same inputs:
                                 ops/brick.py:brick_matvec in interpret mode
                                 (f32; the brick kernel's bf16 hi/lo split is
                                 ~3e-6 relative, as tests/test_brick.py holds it)
-  K2 (segment_sum)          vs  jax.ops.segment_sum (f64, 1e-13) and
-                                brick_scatter in interpret mode (f32, 3e-6)
+  K2 (segment_sum)          vs  jax.ops.segment_sum (f64, 1e-13; also over
+                                a plan that splits long segments into
+                                pieces) and brick_scatter in interpret mode
+                                (f32, 3e-6)
   K3 (contract_G_Gw)        vs  tests/test_torch_step.py::test_contractions
 The kernels themselves are held to the plain versions on the card by
 tests/test_torch_cuda.py."""
@@ -24,8 +26,10 @@ from mixedfem_tpu.ops import brick
 from mixedfem_tpu.solvers import operator as jop
 from mixedfem_tpu.variables import mixed_stretch as jms
 from mixedfem_tpu_torch import cuda
+from mixedfem_tpu_torch.mesh import generators
 from mixedfem_tpu_torch.mesh import mesh as tmesh
 from mixedfem_tpu_torch.ops import assembly, smallops
+from mixedfem_tpu_torch.solvers import coarse as tcoarse
 from mixedfem_tpu_torch.solvers import operator as top
 from mixedfem_tpu_torch.variables import mixed_stretch as tms
 
@@ -75,6 +79,86 @@ def test_incidence_plan():
         assert np.all(flat[seg] == v) and np.all(np.diff(seg) > 0)
     with pytest.raises(ValueError):
         assembly.segment_sum(plan, torch.zeros(2, 4, 3))
+
+
+def _pair_like_segments(seed=0):
+    """Segment ids of rows with a length mix like the coarse pair plan's
+    (most segments under 200 rows, a few of 257-1200, one of 4193, an empty
+    one, lengths at and just past 256), in a shuffled row order; 10,000+
+    rows, not a multiple of 32."""
+    rng = np.random.default_rng(seed)
+    lens = np.concatenate([rng.integers(1, 200, 60), rng.integers(257, 1200, 6),
+                           [4193, 0, 256, 257, 33]])
+    seg = np.repeat(np.arange(len(lens)), lens)
+    rng.shuffle(seg)
+    assert len(seg) % 32
+    return seg, len(lens)
+
+
+@pytest.mark.parametrize("L", [32, 100, 256])
+def test_piece_split(L):
+    """Segments longer than L slots split into consecutive pieces of at
+    most L, each inside its segment, in slot order; the plain sum adds the
+    rows in slot order per piece, then the pieces in order."""
+    seg, nseg = _pair_like_segments()
+    plan = assembly.build_incidence_plan(seg, nseg, "cpu", piece_rows=L)
+    rp, pp = plan.row_ptr.numpy(), plan.piece_ptr.numpy()
+    sp, ps = plan.seg_pieces.numpy(), plan.piece_seg.numpy()
+    assert pp[0] == 0 and pp[-1] == len(seg) and plan.npieces == len(ps)
+    assert np.all(np.diff(pp) >= 0) and np.all(np.diff(pp) <= L)
+    for v in range(nseg):
+        n = rp[v + 1] - rp[v]
+        assert sp[v + 1] - sp[v] == max(1, -(-n // L))
+        assert np.all(ps[sp[v]:sp[v + 1]] == v)
+        assert pp[sp[v]] == rp[v] and pp[sp[v + 1]] == rp[v + 1]
+    rows = np.random.default_rng(1).standard_normal((len(seg), 36))
+    got = assembly.segment_sum_plain(plan, torch.from_numpy(rows))
+    want = np.zeros((nseg, 36))
+    np.add.at(want, seg, rows)
+    close(got, want, rtol=0, atol=1e-13 * np.abs(want).max())
+    # the order, bit for bit in float32: per piece, then per segment
+    r32 = rows.astype(np.float32)[plan.slots.numpy()]
+    part = [np.zeros(36, np.float32) for _ in ps]
+    for p in range(len(ps)):
+        for j in range(pp[p], pp[p + 1]):
+            part[p] = part[p] + r32[j]
+    ordered = np.zeros((nseg, 36), np.float32)
+    for p in range(len(ps)):
+        ordered[ps[p]] = ordered[ps[p]] + part[p]
+    got32 = assembly.segment_sum_plain(plan, torch.from_numpy(rows.astype(np.float32)))
+    np.testing.assert_array_equal(got32.numpy(), ordered)
+
+
+def test_bench_plans_have_no_pieces_but_the_pair_plan():
+    """At the 100k-tet beam's shapes and the default L, the vertex plan (at
+    most 32 rows per vertex) and the aggregate plan (at most 90) have no
+    pieces, so their sums keep their order; the pair plan (up to 4193 rows
+    per aggregate pair) has."""
+    V, T = generators.box_tet_mesh(40, 25, 20, size=(4.0, 1.0, 1.0))
+    vert = assembly.build_incidence_plan(T, len(V), "cpu")
+    cs = tcoarse.build_coarse_space(V, T, V[:, 0] < 1e-9, target_size=48,
+                                    dtype=torch.float32, device="cpu")
+    longest = [int(np.diff(p.row_ptr.numpy()).max())
+               for p in (vert, cs.agg_plan, cs.pair_plan)]
+    assert longest == [32, 90, 4193]
+    assert vert.piece_ptr is None and cs.agg_plan.piece_ptr is None
+    assert vert.npieces == len(V) and cs.agg_plan.npieces == cs.naggr
+    assert cs.pair_plan.npieces > cs.pair_plan.nseg
+
+
+@pytest.mark.parametrize("L", [64, 256])
+def test_segment_sum_with_pieces_vs_jax_segment_sum(L):
+    seg, nseg = _pair_like_segments(2)
+    plan = assembly.build_incidence_plan(seg.reshape(-1, 1), nseg, "cpu",
+                                         piece_rows=L)
+    assert plan.piece_ptr is not None
+    vals = np.random.default_rng(L).standard_normal((len(seg), 1, 6, 6))
+    ref = jax.ops.segment_sum(jnp.asarray(vals).reshape(-1, 36),
+                              jnp.asarray(seg), num_segments=nseg)
+    got = assembly.segment_sum(plan, torch.tensor(vals))
+    assert got.shape == (nseg, 6, 6)
+    close(got.reshape(nseg, 36), ref, rtol=0,
+          atol=1e-13 * float(jnp.max(jnp.abs(ref))))
 
 
 @pytest.mark.parametrize("m", [3, 9])
