@@ -21,7 +21,9 @@ failure:
    plain version and the one PyTorch call that computes the same function
    where there is one, and K4's rows also through K2 over the mesh's
    incidence plan (the same vertex sum); time K2 at m=36 over the pair
-   plan split at several piece lengths L, the sweep that chose L.
+   plan split at several piece lengths L, the sweep that chose L; time K3
+   in float64 too, and at each tile size TE (elements per block) in both
+   types, the sweep that chose TE.
 4. main path: the bench's 100k-tet beam (bench.py:build(40, 25, 20),
    banded element order, x=0 face pinned, gravity; Stable-Neo-Hookean,
    BDF1, h=0.02, 5 Newton iterations, itr_tol 1e-4, two-level coarse space
@@ -48,8 +50,9 @@ failure:
 8. one JSON line of kernel results, then the device line last.
 
 --profile DIR additionally traces one more step of each main path with
-torch.profiler and writes the per-kernel tables to DIR/profile_step.txt
-(phase 4) and DIR/profile_scene_step.txt (phase 6).
+torch.profiler, logs the device time of each hand kernel in it, and writes
+the per-kernel tables to DIR/profile_step.txt (phase 4) and
+DIR/profile_scene_step.txt (phase 6).
 """
 
 from __future__ import annotations
@@ -58,6 +61,7 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -307,6 +311,20 @@ def piece_sweep(cs, rows36, Ls=(64, 128, 256, 512, 1024, 2**30)):
         out[L] = device_ms(lambda r: k2(pl, r), [(r,) for r in sets]) * 1e3
         log(f"  K2 m=36, L {L}: {pl.npieces if pl.piece_ptr is not None else 0} "
             f"pieces, {out[L]:9.2f} us")
+    return out
+
+
+def tile_sweep(case):
+    """K3 (whole wrapper call) in tiles of each of CONTRACT_TILES elements
+    on the copies of `case`, device us per call."""
+    from mixedfem_tpu_torch import cuda
+
+    sets = copies(case["make"], case["bytes"])
+    out = {}
+    for tile in cuda.CONTRACT_TILES:
+        out[str(tile)] = device_ms(
+            lambda *a: cuda.contract_G_Gw_tile(*a, tile), sets) * 1e3
+        log(f"  K3 {sets[0][0].dtype}, TE {tile}: {out[str(tile)]:9.2f} us")
     return out
 
 
@@ -621,12 +639,20 @@ def profile_step(step, out_dir, name, untraced_ms):
         f"host {a.cpu_time_total / 1e3:9.3f} ms device {a.device_time_total / 1e3:9.3f} ms"
         for a in avgs if a.key.startswith("newton.")
     ]
-    for line in spans:
+    # the hand kernels' device time, each instantiation on a line of its own
+    hand = []
+    for a in avgs:
+        m = re.search(r"\b(?:element_apply|segment_sum|contract_G_Gw|banded_sum)"
+                      r"_kernel\w*<[^>]*>", a.key)
+        if m and a.device_type == torch.autograd.DeviceType.CUDA:
+            hand.append(f"  kernel {m.group(0):40s} launches {a.count:4d} device "
+                        f"{a.self_device_time_total / 1e3:8.3f} ms")
+    for line in spans + hand:
         log(line)
     path = os.path.join(out_dir, f"profile_{name}.txt")
     with open(path, "w") as f:
         f.write(f"traced step: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms\n")
-        f.write("\n".join(spans) + "\n")
+        f.write("\n".join(spans + hand) + "\n")
         f.write(avgs.table(sort_by="self_device_time_total", row_limit=60))
     log(f"  traced step wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
         f"({100 * busy_ms / wall_ms:.1f}% of the traced step, "
@@ -670,8 +696,10 @@ def main() -> int:
     cases32 = kernel_cases(mesh, cs, state, dt)
     errs = check_kernels(cases32, torch.float32, 1e-5)
     mesh64, _, state64, cs64 = beam(40, 25, 20, torch.float64, "cuda")
-    check_kernels(kernel_cases(mesh64, cs64, state64, dt), torch.float64, 1e-12)
-    del mesh64, state64, cs64
+    cases64 = kernel_cases(mesh64, cs64, state64, dt)
+    check_kernels(cases64, torch.float64, 1e-12)
+    k3_64 = [c for c in cases64 if c["name"] == "contract_G_Gw"]
+    del mesh64, state64, cs64, cases64
     # K4 on the banded beam's plan and on the loaded scene's plan
     tmp = tempfile.TemporaryDirectory()
     t0 = time.perf_counter()
@@ -702,6 +730,10 @@ def main() -> int:
     timings = time_kernels(cases32, torch.float32)
     sweep = piece_sweep(cs, next(c for c in cases32
                                  if c["name"] == "segment_sum_m36")["make"]()[1])
+    k3_32 = next(c for c in cases32 if c["name"] == "contract_G_Gw")
+    k3_tiles = {"float32": tile_sweep(k3_32), "float64": tile_sweep(k3_64[0])}
+    (k3_64_t,) = time_kernels(k3_64, torch.float64)
+    del k3_64
     k4_beam_t = time_kernels(k4_beam, torch.float32)
     k4_scene_t = time_kernels(k4_scene, torch.float32)
     del k4_beam, beam_plan
@@ -757,6 +789,11 @@ def main() -> int:
         )
         if name == "segment_sum_m36":
             entry["piece_rows_us"] = sweep
+        if name == "contract_G_Gw":
+            entry["tile_us"] = k3_tiles["float32"]
+            entry["tile_us_f64"] = k3_tiles["float64"]
+            entry["f64"] = {k: k3_64_t[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
         c = next((c for c in cases32 if c["name"] == name), {})
         if "npieces" in c:
             entry["npieces"] = c["npieces"]

@@ -91,10 +91,11 @@ def _load():
     for suffix in ("f32", "f64"):
         getattr(lib, f"mf_element_apply_{suffix}").argtypes = [vp] * 6 + [i32, vp]
         getattr(lib, f"mf_contract_G_Gw_{suffix}").argtypes = [vp] * 6 + [i32, vp]
+        getattr(lib, f"mf_contract_G_Gw_tile_{suffix}").argtypes = [vp] * 6 + [i32] * 2 + [vp]
         for name in ("segment_sum", "banded_sum"):
             getattr(lib, f"mf_{name}_{suffix}").argtypes = [vp] * 7 + [i32] * 4 + [vp]
         for name in ("element_apply", "segment_sum", "contract_G_Gw",
-                     "banded_sum"):
+                     "contract_G_Gw_tile", "banded_sum"):
             getattr(lib, f"mf_{name}_{suffix}").restype = i32
     lib.mf_error_string.argtypes = [i32]
     lib.mf_error_string.restype = ctypes.c_char_p
@@ -202,8 +203,24 @@ def segment_sum(row_ptr, slots, rows, nseg: int, piece_ptr=None,
     return out
 
 
+# K3's tile sizes, elements per block (contract_G_Gw takes the kernel's
+# own, kK3Tile)
+CONTRACT_TILES = (16, 32, 64)
+
+
 def contract_G_Gw(D, dphi, Hs, vols):
     """K3: G = D : dphi and Gw = sqrt(vol) Hs G, both (E, 6, 4, 3)."""
+    return _contract_G_Gw(D, dphi, Hs, vols, None)
+
+
+def contract_G_Gw_tile(D, dphi, Hs, vols, tile: int):
+    """K3 in tiles of `tile` elements, one of CONTRACT_TILES."""
+    if tile not in CONTRACT_TILES:
+        raise ValueError(f"tile {tile}: K3 takes one of {CONTRACT_TILES}")
+    return _contract_G_Gw(D, dphi, Hs, vols, tile)
+
+
+def _contract_G_Gw(D, dphi, Hs, vols, tile):
     sfx = _float_dtype(D)
     dev, dt = D.device, D.dtype
     E = D.shape[0]
@@ -213,10 +230,12 @@ def contract_G_Gw(D, dphi, Hs, vols):
     _check(vols, "vols", (E,), dt, dev)
     G = torch.empty((E, 6, 4, 3), dtype=dt, device=dev)
     Gw = torch.empty((E, 6, 4, 3), dtype=dt, device=dev)
-    _launch(
-        "contract_G_Gw", sfx, D.data_ptr(), dphi.data_ptr(), Hs.data_ptr(),
-        vols.data_ptr(), G.data_ptr(), Gw.data_ptr(), E,
-    )
+    args = (D.data_ptr(), dphi.data_ptr(), Hs.data_ptr(), vols.data_ptr(),
+            G.data_ptr(), Gw.data_ptr(), E)
+    if tile is None:
+        _launch("contract_G_Gw", sfx, *args)
+    else:
+        _launch("contract_G_Gw_tile", sfx, *args, tile)
     LAUNCHES["contract_G_Gw"] += 1
     return G, Gw
 

@@ -80,6 +80,75 @@ def test_kernels_match_plain(card, dtype):
         check(a, b)
 
 
+def _k3_inputs(E, dtype, device, seed=0, offset=0):
+    """Random K3 inputs for E elements (positive volumes); with offset > 0
+    each lies `offset` elements into its own buffer, a contiguous view that
+    is not 16-byte aligned."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for shape in ((E, 6, 3, 3), (E, 4, 3), (E, 6, 6), (E,)):
+        a = rng.standard_normal(shape)
+        if len(shape) == 1:
+            a = np.abs(a) + 0.1
+        buf = torch.zeros(a.size + offset, dtype=dtype, device=device)
+        buf[offset:] = torch.tensor(a.reshape(-1), dtype=dtype, device=device)
+        out.append(buf[offset:].view(shape))
+    return out
+
+
+def _check_k3(got, ref, tol):
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape
+        scale = b.abs().max().item()
+        assert (a - b).abs().max().item() <= tol * scale
+
+
+@pytest.mark.parametrize("tile", cuda.CONTRACT_TILES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_contract_G_Gw_tile_edges(card, dtype, tile):
+    """K3 at E = 1, TE - 1, TE + 1 and 3 TE + 7 for each tile size TE: a
+    single element, a tile one short, a tile and one, a partial last tile."""
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    for E in (1, tile - 1, tile + 1, 3 * tile + 7):
+        ins = _k3_inputs(E, dtype, card, seed=E)
+        _check_k3(cuda.contract_G_Gw_tile(*ins, tile),
+                  smallops.contract_G_Gw_plain(*ins), tol)
+
+
+@pytest.mark.parametrize("dtype,offset", [
+    (torch.float32, 1), (torch.float32, 2), (torch.float32, 3),
+    (torch.float64, 1), (torch.float64, 3)])
+def test_contract_G_Gw_misaligned(card, dtype, offset):
+    """K3 on contiguous views that start 1-3 elements into their storage
+    (4-, 8-, 12- or 24-byte offsets, so the 16-byte copies give way to 8-
+    or 4-byte ones), through the wrapper the step calls, with a partial
+    last tile."""
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    ins = _k3_inputs(1000 + offset, dtype, card, seed=offset, offset=offset)
+    assert all(t.data_ptr() % 16 for t in ins)
+    _check_k3(smallops.contract_G_Gw(*ins), smallops.contract_G_Gw_plain(*ins),
+              tol)
+
+
+def test_contract_G_Gw_float32_order(card):
+    """K3 adds in the plain version's order (G over c ascending, then Hs G
+    over j ascending, then the sqrt(vol) product), so at the main path's
+    100k elements its float32 results are the plain version's bits, and
+    on the first 20,011 elements alone K3 gives the same bits again. (The
+    plain version does not: the batched product behind it picks another
+    order for Hs G at that batch size.)"""
+    ins = _k3_inputs(100_000, torch.float32, card, seed=7)
+    got = cuda.contract_G_Gw(*ins)
+    ref = smallops.contract_G_Gw_plain(*ins)
+    part = cuda.contract_G_Gw(*(t[:20_011] for t in ins))
+    torch.cuda.synchronize()
+    for name, a, b, p in zip(("G", "Gw"), got, ref, part):
+        assert torch.equal(a, b), (name, int((a != b).sum()),
+                                   (a - b).abs().max().item())
+        assert torch.equal(p, a[:20_011]), name
+
+
 def test_wrappers_check_their_inputs(card):
     mesh, x = _beam(torch.float32, card)
     Gw = torch.zeros(mesh.nelem, 6, 4, 3, device=card)

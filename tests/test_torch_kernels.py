@@ -12,6 +12,7 @@ JAX package's functions on the same inputs:
                                 pieces) and brick_scatter in interpret mode
                                 (f32, 3e-6)
   K3 (contract_G_Gw)        vs  tests/test_torch_step.py::test_contractions
+                                and ::test_contract_G_Gw_tile_edges
 The kernels themselves are held to the plain versions on the card by
 tests/test_torch_cuda.py."""
 
@@ -253,6 +254,10 @@ def test_launchers_take_cuda_tensors_only():
                          torch.zeros(8, dtype=torch.int32), f(8, 3), 5)
     with pytest.raises(ValueError, match="CUDA tensors"):
         cuda.contract_G_Gw(f(2, 6, 3, 3), f(2, 4, 3), f(2, 6, 6), f(2))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cuda.contract_G_Gw_tile(f(2, 6, 3, 3), f(2, 4, 3), f(2, 6, 6), f(2), 32)
+    with pytest.raises(ValueError, match="tile 48"):
+        cuda.contract_G_Gw_tile(f(2, 6, 3, 3), f(2, 4, 3), f(2, 6, 6), f(2), 48)
     plan = assembly.build_incidence_plan(T.numpy(), 5, "cpu")
     assembly.segment_sum(plan, f(2, 4, 3))
     smallops.contract_G_Gw(f(2, 6, 3, 3), f(2, 4, 3), f(2, 6, 6), f(2))

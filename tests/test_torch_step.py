@@ -100,6 +100,24 @@ def test_contractions(beam):
     close(Gw, Gw_ref, rtol=1e-12, atol=1e-12)
 
 
+@pytest.mark.parametrize("E", [1, 31, 33, 103])
+def test_contract_G_Gw_tile_edges(E):
+    """K3's function on the CPU at element counts around its 32-element
+    tiles (one element, a tile less one, a tile and one, a partial last
+    tile) against JAX's contract_D_dphi and sqrt(vol) contract_sym_G."""
+    rng = np.random.default_rng(E)
+    D = rng.standard_normal((E, 6, 3, 3))
+    dphi = rng.standard_normal((E, 4, 3))
+    Hs = rng.standard_normal((E, 6, 6))
+    vols = rng.uniform(0.1, 1.0, E)
+    G_ref = jsmall.contract_D_dphi(jnp.asarray(D), jnp.asarray(dphi))
+    Gw_ref = np.sqrt(vols)[:, None, None, None] * np.asarray(
+        jsmall.contract_sym_G(jnp.asarray(Hs), G_ref))
+    G, Gw = tsmall.contract_G_Gw(t64(D), t64(dphi), t64(Hs), t64(vols))
+    close(G, G_ref, rtol=1e-12, atol=1e-12 * float(jnp.max(jnp.abs(G_ref))))
+    close(Gw, Gw_ref, rtol=1e-12, atol=1e-12 * float(np.abs(Gw_ref).max()))
+
+
 @pytest.mark.parametrize(
     "field", ["G", "Gw", "H", "Hinv", "g", "Sv", "R", "max_evals"]
 )
