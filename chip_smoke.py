@@ -23,7 +23,11 @@ failure:
    incidence plan (the same vertex sum); time K2 at m=36 over the pair
    plan split at several piece lengths L, the sweep that chose L; time K3
    in float64 too, and at each tile size TE (elements per block) in both
-   types, the sweep that chose TE.
+   types, the sweep that chose TE. K5 (stencil_apply) and K6
+   (stencil_assemble) are held to theirs on the bench's 100k-tet box grid
+   of phase 8 in both types and timed in both; K5 cold (W copies larger
+   than L2, as every other kernel is timed) and hot (the same W, fresh x,
+   as the CG loop reads it).
 4. main path: the bench's 100k-tet beam (bench.py:build(40, 25, 20),
    banded element order, x=0 face pinned, gravity; Stable-Neo-Hookean,
    BDF1, h=0.02, 5 Newton iterations, itr_tol 1e-4, two-level coarse space
@@ -47,12 +51,24 @@ failure:
    card and on the CPU (the same loaded objects moved there, so the plain
    versions run over the same element order and plan): positions agree to
    1e-9 of scale, CG and Newton counts are equal.
-8. one JSON line of kernel results, then the device line last.
+8. grid path: the bench's headline configuration (bench.py:build(40, 25,
+   20) with its stencil plan and element permutation, value_stencil_100k):
+   the same beam in cell-major element order with the lattice-block coarse
+   space of build_coarse_space_grid, refreshed every 10 steps, in float32
+   through newton_step with the StencilPlan (the lattice body: K3, K6,
+   K5, K2): one warm-up step and three timed steps, counters set to 0
+   just before and read just after; then one float64 step of the same
+   beam, whose CG counts stand beside the float32 ones.
+9. grid trajectory: a 1500-tet box grid, 3 float64 steps of 3 Newton
+   iterations with a grid coarse space, on the card and on the CPU:
+   positions agree to 1e-9 of scale, CG and Newton counts are equal.
+10. one JSON line of kernel results, then the device line last.
 
 --profile DIR additionally traces one more step of each main path with
 torch.profiler, logs the device time of each hand kernel in it, and writes
-the per-kernel tables to DIR/profile_step.txt (phase 4) and
-DIR/profile_scene_step.txt (phase 6).
+the per-kernel tables to DIR/profile_step.txt (phase 4),
+DIR/profile_scene_step.txt (phase 6) and DIR/profile_grid_step.txt
+(phase 8).
 """
 
 from __future__ import annotations
@@ -98,24 +114,18 @@ def card_line() -> str:
 # the bench's beam
 # ---------------------------------------------------------------------------
 
-def beam(nx, ny, nz, dtype, device):
-    """bench.py:build on the port: mesh, config, initial state, coarse."""
+def _sim(V, T, dtype, device):
+    """bench.py:build's mesh, config and initial state on the port."""
     from mixedfem_tpu_torch.config import SimConfig, enu_to_lame
-    from mixedfem_tpu_torch.mesh import generators
     from mixedfem_tpu_torch.mesh import mesh as meshmod
     from mixedfem_tpu_torch.optimizer import newton
-    from mixedfem_tpu_torch.solvers import coarse as coarsemod
-    from mixedfem_tpu_torch.solvers.operator import sort_elements_banded
 
-    V, T = generators.box_tet_mesh(nx, ny, nz, size=(4.0, 1.0, 1.0))
-    T = T[sort_elements_banded(T)]
     la, mu = enu_to_lame(1e6, 0.45)
-    is_fixed = V[:, 0] < 1e-9
     mesh = meshmod.build_mesh_data(
         V, T,
         density=np.full(len(T), 1000.0), mu=np.full(len(T), mu),
         lam=np.full(len(T), la), model_id=np.zeros(len(T), int),
-        models=("Stable-Neohookean",), is_fixed=is_fixed,
+        models=("Stable-Neohookean",), is_fixed=V[:, 0] < 1e-9,
         ext_force=np.tile(np.array([0.0, -9.8, 0.0]), (len(V), 1)),
         dtype=dtype, device=device,
     )
@@ -125,11 +135,46 @@ def beam(nx, ny, nz, dtype, device):
         dtype="float64" if dtype == torch.float64 else "float32",
     )
     x0 = torch.tensor(V, dtype=dtype, device=device)
-    state = newton.init_state(mesh, config, (), x0, torch.zeros_like(x0))
+    return mesh, config, newton.init_state(mesh, config, (), x0,
+                                           torch.zeros_like(x0))
+
+
+def beam(nx, ny, nz, dtype, device):
+    """bench.py:build on the port, banded element order: mesh, config,
+    initial state, geometric coarse space."""
+    from mixedfem_tpu_torch.mesh import generators
+    from mixedfem_tpu_torch.solvers import coarse as coarsemod
+    from mixedfem_tpu_torch.solvers.operator import sort_elements_banded
+
+    V, T = generators.box_tet_mesh(nx, ny, nz, size=(4.0, 1.0, 1.0))
+    T = T[sort_elements_banded(T)]
+    mesh, config, state = _sim(V, T, dtype, device)
     cs = coarsemod.build_coarse_space(
-        V, T, is_fixed, target_size=48, dtype=dtype, device=device
+        V, T, V[:, 0] < 1e-9, target_size=48, dtype=dtype, device=device
     )
     return mesh, config, state, cs
+
+
+def grid_beam(nx, ny, nz, dtype, device):
+    """bench.py:build on the port with its stencil plan: the element
+    permutation of build_stencil_plan, the lattice-block coarse space of
+    build_coarse_space_grid and a zero coarse cache (bench.py:339-360).
+    Mesh, config, initial state, coarse space, plan."""
+    from mixedfem_tpu_torch.mesh import generators
+    from mixedfem_tpu_torch.ops import stencil as stmod
+    from mixedfem_tpu_torch.solvers import coarse as coarsemod
+
+    V, T = generators.box_tet_mesh(nx, ny, nz, size=(4.0, 1.0, 1.0))
+    dims = (nx + 1, ny + 1, nz + 1)
+    plan, perm = stmod.build_stencil_plan(T, len(V), dims, device=device)
+    if plan is None:
+        raise AssertionError("the box grid was not recognised as one")
+    T = T[perm]
+    mesh, config, state = _sim(V, T, dtype, device)
+    cs = coarsemod.build_coarse_space_grid(V, T, V[:, 0] < 1e-9, dims,
+                                           dtype=dtype, device=device)
+    state.precond = torch.zeros((cs.ncd, cs.ncd), dtype=dtype, device=device)
+    return mesh, config, state, cs, plan
 
 
 # ---------------------------------------------------------------------------
@@ -366,6 +411,50 @@ def k4_cases(plan, inc, rows3, rows9, label):
     return [case(rows3), case(rows9)]
 
 
+def stencil_cases(mesh, plan, state, dt, dtype):
+    """K5 and K6 on what the grid path gives them: Gw at a perturbed state
+    of the 100k-tet box grid, its mass blocks, W assembled from them by
+    the plain version, a lattice vector x and the lattice free mask, all
+    cast to `dtype`."""
+    from mixedfem_tpu_torch.ops import stencil as stmod
+
+    ins = step_inputs(mesh, state, dt)
+    Gw, mass = ins["Gw"].to(dtype), mesh.mass_coeff.to(dtype)
+    W = stmod.assemble_W_plain(plan, Gw, mass)
+    x = stmod.to_lat(plan, torch.randn((mesh.nv, 3), generator=ins["g"],
+                                       device=mesh.device).to(dtype))
+    fm = stmod.to_lat(plan, mesh.free_mask[:, None].expand(-1, 3).to(dtype))
+    npad, es, E = plan.npad, x.element_size(), mesh.nelem
+    nused = len(plan.used)
+    # K6 adds 16 blocks a element: 6 x 9 products and sums, 3 mass adds
+    # and 9 adds into the plane
+    k6_flops = 16 * E * (2 * 54 + 3 + 9)
+    return [
+        dict(
+            name="stencil_apply", replaces="mixedfem_tpu/ops/stencil.py:378",
+            kernel=lambda W_, x_, f_: stmod.matvec_lat(plan, W_, x_, f_),
+            plain=lambda W_, x_, f_: stmod.stencil_apply_plain(plan, W_, x_, f_),
+            library=None, make=lambda: (W.clone(), x.clone(), fm.clone()),
+            # the CG loop's view: one W, a new x each iteration
+            hot=lambda: (W, x.clone(), fm),
+            # the planes the plan uses, x and fm read once, y written once
+            bytes=nused * 9 * npad * es + 3 * 3 * npad * es,
+            flops=mesh.nv * (nused * 9 * 2 + 3),
+        ),
+        dict(
+            name="stencil_assemble", replaces="mixedfem_tpu/ops/stencil.py:187",
+            kernel=lambda Gw_, m_: stmod.assemble_W(plan, Gw_, m_),
+            plain=lambda Gw_, m_: stmod.assemble_W_plain(plan, Gw_, m_),
+            library=None, make=lambda: (Gw.clone(), mass.clone()),
+            # Gw and mass read once, the planes the plan uses written once
+            # (the 8 planes no term touches are zeros the kernel need not
+            # store)
+            bytes=nbytes(Gw, mass) + nused * 9 * npad * es,
+            flops=k6_flops,
+        ),
+    ]
+
+
 def max_err(a, b) -> tuple[float, float]:
     a = a if isinstance(a, tuple) else (a,)
     b = b if isinstance(b, tuple) else (b,)
@@ -406,19 +495,22 @@ def time_kernels(cases, dtype):
         plain_ms = device_ms(c["plain"], sets)
         lib_ms = None if c["library"] is None else device_ms(c["library"], sets)
         k2_ms = device_ms(c["k2"], sets) if "k2" in c else None
+        hot_ms = (device_ms(c["kernel"], [c["hot"]() for _ in range(4)])
+                  if "hot" in c else None)
         bytes_ms = c["bytes"] / PEAK_BYTES * 1e3
         ops_ms = c["flops"] / PEAK_FLOPS[dtype] * 1e3
         out.append(dict(
             name=c["name"], key=case_key(c), ms=ms, plain_ms=plain_ms,
             library_ms=lib_ms, bound_ms=max(bytes_ms, ops_ms),
             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-            k2_same_rows_ms=k2_ms,
+            k2_same_rows_ms=k2_ms, hot_ms=hot_ms,
         ))
         log(f"  {case_key(c):28s} kernel {ms * 1e3:9.2f} us  plain "
             f"{plain_ms * 1e3:9.2f} us  library "
             f"{'-' if lib_ms is None else f'{lib_ms * 1e3:9.2f}'} us  bound "
             f"{max(bytes_ms, ops_ms) * 1e3:7.2f} us ({c['bytes'] / 1e6:.2f} MB)"
-            + ("" if k2_ms is None else f"  K2 on these rows {k2_ms * 1e3:9.2f} us"))
+            + ("" if k2_ms is None else f"  K2 on these rows {k2_ms * 1e3:9.2f} us")
+            + ("" if hot_ms is None else f"  hot (W in L2) {hot_ms * 1e3:9.2f} us"))
     return out
 
 
@@ -426,29 +518,30 @@ def time_kernels(cases, dtype):
 # phases 4 and 5: the step
 # ---------------------------------------------------------------------------
 
-def run_steps(mesh, config, state, cs, n):
+def run_steps(mesh, config, state, cs, n, plan=None):
     from mixedfem_tpu_torch.optimizer import newton
 
     states = []
     for _ in range(n):
-        state = newton.newton_step(mesh, config, (), state, cs)
+        state = newton.newton_step(mesh, config, (), state, cs, (), plan)
         states.append(state)
     return states
 
 
 def describe(st) -> str:
     it = st.stats.iterations
-    return (f"newton {it} cg {st.stats.solver_iters[:it].tolist()} energy "
+    return (f"newton {it} cg {st.stats.solver_iters[:it].tolist()} alpha "
+            f"{st.stats.alpha[:it].tolist()} energy "
             f"{[float(f'{e:.9g}') for e in st.stats.energy[:it].tolist()]}")
 
 
-def main_path(mesh, config, state, cs):
+def main_path(mesh, config, state, cs, plan=None, what="100k-tet"):
     from mixedfem_tpu_torch import cuda
 
     cuda.LAUNCHES.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    (state,) = run_steps(mesh, config, state, cs, 1)
+    (state,) = run_steps(mesh, config, state, cs, 1, plan)
     torch.cuda.synchronize()
     warm_ms = (time.perf_counter() - t0) * 1e3
     log(f"  warm-up step {warm_ms:.1f} ms: {describe(state)}")
@@ -456,7 +549,7 @@ def main_path(mesh, config, state, cs):
     states, times = [], []
     for _ in range(3):
         t0 = time.perf_counter()
-        (state,) = run_steps(mesh, config, state, cs, 1)
+        (state,) = run_steps(mesh, config, state, cs, 1, plan)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         states.append(state)
@@ -466,12 +559,13 @@ def main_path(mesh, config, state, cs):
         log(f"  step {k + 1}: {ms:.3f} ms, {describe(st)}")
     cg = [st.stats.solver_iters[:st.stats.iterations].tolist() for st in states]
     newton_its = sum(st.stats.iterations for st in states)
-    log(f"  ms_per_step {step_ms:.3f} (3 timed steps), CG iterations per "
+    log(f"  ms_per_step {step_ms:.3f} (3 timed steps), ms per Newton "
+        f"iteration {sum(times) / newton_its:.3f}, CG iterations per "
         f"Newton {sum(map(sum, cg)) / newton_its:.2f}, launches over 4 "
         f"steps {launches}")
     final = states[-1]
     if final.x.shape != (mesh.nv, 3) or not torch.isfinite(final.x).all():
-        raise AssertionError("the 100k-tet step produced non-finite positions")
+        raise AssertionError(f"the {what} step produced non-finite positions")
     for st in states:
         check_energies(st)
     return final, step_ms, launches
@@ -505,6 +599,44 @@ def trajectory():
             f"CG card {cg_g} cpu {cg_c}")
         if not err <= 1e-9 * scale:
             raise AssertionError("the card's trajectory leaves the CPU's")
+        if cg_g != cg_c or g.stats.iterations != c.stats.iterations:
+            raise AssertionError("CG or Newton counts differ")
+
+
+def grid_float64_step():
+    """One float64 step of the 100k-tet grid path on the card: its CG
+    counts per Newton iteration beside the float32 ones."""
+    mesh, config, state, cs, plan = grid_beam(40, 25, 20, torch.float64, "cuda")
+    t0 = time.perf_counter()
+    (st,) = run_steps(mesh, config, state, cs, 1, plan)
+    torch.cuda.synchronize()
+    log(f"  float64 step {(time.perf_counter() - t0) * 1e3:.1f} ms: {describe(st)}")
+    check_energies(st)
+
+
+def grid_trajectory():
+    """3 float64 steps of a 1500-tet box grid with a grid coarse space on
+    the card (K3, K5, K6, K2) and on the CPU (plain versions)."""
+    import dataclasses
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        mesh, config, state, cs, plan = grid_beam(10, 6, 5, torch.float64, dev)
+        config = dataclasses.replace(config, outer_steps=3,
+                                     coarse_refresh_every=2)
+        out[dev] = run_steps(mesh, config, state, cs, 3, plan)
+    log(f"  E {mesh.nelem} nv {mesh.nv} aggregates {cs.naggr} block "
+        f"{cs.grid[1]}")
+    for k, (g, c) in enumerate(zip(out["cuda"], out["cpu"])):
+        scale = c.x.abs().max().item()
+        err = (g.x.cpu() - c.x).abs().max().item()
+        cg_g = g.stats.solver_iters.tolist()
+        cg_c = c.stats.solver_iters.tolist()
+        log(f"  step {k}: max |x_card - x_cpu| {err:.3e} (scale {scale:.3f}), "
+            f"CG card {cg_g} cpu {cg_c}, alpha card {g.stats.alpha.tolist()} "
+            f"cpu {c.stats.alpha.tolist()}")
+        if not err <= 1e-9 * scale:
+            raise AssertionError("the card's grid trajectory leaves the CPU's")
         if cg_g != cg_c or g.stats.iterations != c.stats.iterations:
             raise AssertionError("CG or Newton counts differ")
 
@@ -642,8 +774,8 @@ def profile_step(step, out_dir, name, untraced_ms):
     # the hand kernels' device time, each instantiation on a line of its own
     hand = []
     for a in avgs:
-        m = re.search(r"\b(?:element_apply|segment_sum|contract_G_Gw|banded_sum)"
-                      r"_kernel\w*<[^>]*>", a.key)
+        m = re.search(r"\b(?:element_apply|segment_sum|contract_G_Gw|banded_sum"
+                      r"|stencil_apply|stencil_assemble)_kernel\w*<[^>]*>", a.key)
         if m and a.device_type == torch.autograd.DeviceType.CUDA:
             hand.append(f"  kernel {m.group(0):40s} launches {a.count:4d} device "
                         f"{a.self_device_time_total / 1e3:8.3f} ms")
@@ -737,6 +869,22 @@ def main() -> int:
     k4_beam_t = time_kernels(k4_beam, torch.float32)
     k4_scene_t = time_kernels(k4_scene, torch.float32)
     del k4_beam, beam_plan
+    # K5 and K6 on the bench's box grid (phase 8's mesh)
+    t0 = time.perf_counter()
+    gmesh, gconfig, gstate, gcs, gplan = grid_beam(40, 25, 20, torch.float32,
+                                                   "cuda")
+    log(f"  grid built in {time.perf_counter() - t0:.1f} s: E {gmesh.nelem} "
+        f"nv {gmesh.nv}, lattice {(gplan.NI, gplan.NJ, gplan.NK)}, npad "
+        f"{gplan.npad}, planes used {len(gplan.used)} of 27, terms "
+        f"{len(gplan.terms)}, aggregates {gcs.naggr} (block {gcs.grid[1]}) "
+        f"ncd {gcs.ncd}")
+    st32 = stencil_cases(gmesh, gplan, gstate, dt, torch.float32)
+    st64 = stencil_cases(gmesh, gplan, gstate, dt, torch.float64)
+    errs.update(check_kernels(st32, torch.float32, 1e-5))
+    check_kernels(st64, torch.float64, 1e-12)
+    st32_t = time_kernels(st32, torch.float32)
+    st64_t = {t["name"]: t for t in time_kernels(st64, torch.float64)}
+    del st32, st64
 
     log("phase 4: main path, 100k tets, float32")
     final, step_ms, launches = main_path(mesh, config, state, cs)
@@ -767,26 +915,54 @@ def main() -> int:
         scene_trajectory(d)
     tmp.cleanup()
 
-    log("phase 8: results")
+    log("phase 8: grid path, 100k tets, float32 (stencil plan, grid coarse "
+        "space)")
+    gfinal, grid_ms, grid_launches = main_path(gmesh, gconfig, gstate, gcs,
+                                               gplan, "grid")
+    need = ("stencil_apply", "stencil_assemble", "contract_G_Gw",
+            "segment_sum_m3", "segment_sum_m36")
+    missing = [k for k in need if grid_launches.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the grid path: {missing}")
+    if args.profile:
+        profile_step(lambda: run_steps(gmesh, gconfig, gfinal, gcs, 1, gplan),
+                     args.profile, "grid_step", grid_ms)
+    del gmesh, gstate, gcs, gplan, gfinal
+    grid_float64_step()
+
+    log("phase 9: float64 grid trajectory, card against CPU")
+    grid_trajectory()
+
+    log("phase 10: results")
     replaces = {c["name"]: c["replaces"] for c in cases32 + k4_scene}
+    replaces.update({t["name"]: "mixedfem_tpu/ops/stencil.py:" + (
+        "378" if t["name"] == "stencil_apply" else "187") for t in st32_t})
     k4_other = {t["name"]: t for t in k4_beam_t}
     kernels = []
-    for t in timings + k4_scene_t:
+    for t in timings + k4_scene_t + st32_t:
         name = t["name"]
         by_path = {"beam_step": launches.get(name, 0),
-                   "scene_step": scene_launches.get(name, 0)}
+                   "scene_step": scene_launches.get(name, 0),
+                   "grid_step": grid_launches.get(name, 0)}
         entry = dict(
             name=name, route="cuda",
             source="mixedfem_tpu_torch/csrc/kernels.cu",
             replaces=replaces[name],
-            # the path that carries the kernel: K4 the scene's, K1-K3 the
-            # bench beam's (phase 4)
+            # the path that carries the kernel: K4 the scene's, K5 and K6
+            # the grid's, K1-K3 the bench beam's (phase 4)
             launches=by_path["scene_step" if name.startswith("banded")
+                             else "grid_step" if name.startswith("stencil")
                              else "beam_step"],
             launches_by_path=by_path, max_abs_err=errs[t["key"]],
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"],
         )
+        if t["hot_ms"] is not None:
+            entry["hot_ms"] = t["hot_ms"]
+        if name in st64_t:
+            entry["f64"] = {k: st64_t[name][k] for k in (
+                "ms", "hot_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms") if st64_t[name][k] is not None}
         if name == "segment_sum_m36":
             entry["piece_rows_us"] = sweep
         if name == "contract_G_Gw":
@@ -805,7 +981,8 @@ def main() -> int:
                 "key", "ms", "plain_ms", "bound_ms", "library_ms",
                 "k2_same_rows_ms")}
         kernels.append(entry)
-    log(f"{card}, ms_per_step {step_ms:.3f}, scene ms_per_step {scene_ms:.3f}")
+    log(f"{card}, ms_per_step {step_ms:.3f}, scene ms_per_step {scene_ms:.3f}, "
+        f"grid ms_per_step {grid_ms:.3f}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

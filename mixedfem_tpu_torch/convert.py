@@ -1,5 +1,6 @@
-"""Carry the JAX package's mesh, state, coarse space, boundary conditions,
-press controllers and banded plan across to the port.
+"""Carry the JAX package's mesh, state, coarse space (geometric or grid),
+boundary conditions, press controllers, banded plan and stencil plan across
+to the port.
 
 The JAX objects are handed over as dicts of numpy arrays (one entry per
 dataclass field, nested dataclasses as nested dicts, static fields such as
@@ -21,6 +22,7 @@ from mixedfem_tpu_torch.device import resolve_device
 from mixedfem_tpu_torch.integrators.bdf import BDFState
 from mixedfem_tpu_torch.mesh.mesh import MeshData, mesh_from_arrays
 from mixedfem_tpu_torch.ops.banded_scatter import plan_from_arrays
+from mixedfem_tpu_torch.ops.stencil import StencilPlan, plan_from_terms
 from mixedfem_tpu_torch.optimizer.newton import SimState, StepStats
 from mixedfem_tpu_torch.solvers.coarse import CoarseSpace, coarse_from_arrays
 from mixedfem_tpu_torch.solvers.operator import BandedPlan
@@ -42,12 +44,11 @@ def mesh_from_numpy(d: Mapping, dtype, device) -> MeshData:
 
 
 def coarse_from_numpy(d: Mapping, dtype, device) -> CoarseSpace:
-    if d.get("grid") is not None:
-        raise NotImplementedError("grid (lattice-block) coarse spaces")
+    """A geometric or a grid (lattice-block, `grid` set) coarse space."""
     return coarse_from_arrays(
         agg_id=d["agg_id"], r=d["r"], pair_id=d["pair_id"],
         pair_rows=d["pair_rows"], pair_cols=d["pair_cols"],
-        naggr=d["naggr"], dtype=dtype, device=device,
+        naggr=d["naggr"], dtype=dtype, device=device, grid=d.get("grid"),
     )
 
 
@@ -144,4 +145,16 @@ def banded_plan_from_numpy(d: Mapping, device) -> BandedPlan:
         lidx=d["lidx"], win_start=d["win_start"], nrows=int(d["nrows"]),
         chunk=int(d["chunk"]), W=int(d["W"]), nv=int(d["nv"]),
         device=resolve_device(device),
+    )
+
+
+def stencil_plan_from_numpy(d: Mapping, device) -> StencilPlan:
+    """The JAX StencilPlan (masks, NI, NJ, NK, nslots, terms, vec_terms)
+    with the port's tables built from it. Its element order is the one the
+    JAX mesh was built in (cell-major after build_stencil_plan's
+    permutation), which mesh_from_numpy keeps, so both packages step the
+    same elements."""
+    return plan_from_terms(
+        int(d["NI"]), int(d["NJ"]), int(d["NK"]), int(d["nslots"]),
+        d["terms"], d["vec_terms"], d["masks"], resolve_device(device),
     )

@@ -1,5 +1,6 @@
-// Hand-written Hopper (sm_90a) kernels of the unstructured mixed-stretch
-// implicit step. One translation unit with a plain C interface, built by
+// Hand-written Hopper (sm_90a) kernels of the mixed-stretch implicit step,
+// unstructured (K1-K4) and on structured box grids (K5, K6). One
+// translation unit with a plain C interface, built by
 // mixedfem_tpu_torch/cuda.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 // and loaded with ctypes. Every entry point launches on the stream it is
@@ -79,6 +80,53 @@
 //     int32 vertex id per row and out: 6.7 / 16.9 MB (m=3 / 9) at 100k tets
 //     f32, 2.0 / 5.0 us. The first design (per-chunk partials, then a sum per
 //     vertex) took 21-30 us: 196 latency-bound blocks, partials through L2.
+//
+// K5 stencil_apply  is the CG matvec of the structured-grid path, the
+//     function of mixedfem_tpu/ops/stencil.py:matvec_lat (XLA on the TPU,
+//     27 shifted block products) with the CG's free mask fused:
+//       y[a,v] = fm[a,v] sum_{o used} sum_b W[o,a,b,v] x[b, v + shift_o]
+//     on the ghost-padded vertex lattice (NI+2, NJ+2, NK+2), y = 0 at the
+//     ghosts. Bound: bytes. The 19 planes of W that the 5-tet split uses,
+//     and x, fm and y once: 19.9 MB at 100k tets f32 (27,692 lattice
+//     vertices), 5.9 us at 3.35 TB/s; 2 flop per W value is negligible.
+//     Design: a thread per (row a of y, lattice vertex), 83,076 threads at
+//     100k tets (a thread per vertex, 27,692 threads on 132 SMs, took
+//     22.2 us: too few loads in flight). W is feature-major with the vertex
+//     minor, so each of a thread's 57 reads of W is coalesced across a warp
+//     as it stands; the planes the plan never uses are skipped by a bit
+//     mask, x[v + shift] comes from L1/L2 (the three rows of x are 0.33
+//     MB), and a ghost vertex writes zeros without reading (its shifts
+//     would leave the array). The sum runs over the planes in ascending
+//     order, as the plain version adds them. Measured at 100k tets on an
+//     NVIDIA H100 80GB HBM3 at 700 W: 17.7 us in f32 with W read from
+//     device memory (3.0x its bound), 9.4 us with W in L2; 19.0 / 12.5 us
+//     in f64 (bound 11.9 us).
+//
+// K6 stencil_assemble  builds W once per Newton iteration, the function of
+//     mixedfem_tpu/ops/stencil.py:_assemble_terms (XLA on the TPU, ~160
+//     masked pad-and-sum windows): for each term (slot t, corners a and b,
+//     cell parity p, corner offset ca of a, plane o) and each cell c of
+//     parity p, the block sum_n Gw[e,n,a,:] (x) Gw[e,n,b,:] + mass[e,a,b] I
+//     of element e = c * nslots + t is added to W[o,:,:,c + ca]. Bound:
+//     bytes. Gw (28.8 MB) and mass (6.4 MB) read once and the 19 planes of
+//     W that the terms touch written once (18.9 MB; the other 8 are zeros
+//     that need not be stored): 54.1 MB at 100k tets f32, 16.2 us at 3.35
+//     TB/s. The kernel also writes the 8 zero planes (8.0 MB, about 2.4
+//     us at that rate). Design: gather, no atomics. A block
+//     takes 32 consecutive lattice vertices and all 27 planes (a warp per
+//     plane); each thread walks its plane's terms in the plan's order, adds
+//     the block of the one cell whose corner a sits at its vertex when that
+//     cell exists and has the term's parity, and stores its 9 sums with
+//     coalesced writes. The order of every sum is the plan's, so a run
+//     repeats bit for bit. The 27 warps of a block read the same ~40
+//     elements' rows, which L1 can serve after the first read. 52 registers
+//     a thread in f32, 72 in f64, no spills. Measured at 100k tets on an
+//     NVIDIA H100 80GB HBM3 at 700 W: 248 us in f32 (15x its bound), 471
+//     us in f64 (bound 32.3 us): a warp's lanes read 32 elements 1,440
+//     bytes apart (Gw is element-major), and the centre plane's warp adds
+//     20 blocks at each vertex against about 3 for the others. Staging the
+//     cell rows around a lattice line through shared memory is the next
+//     design; it is 1.25 ms of a step that the host bounds at about 1 s.
 
 #include <cuda_runtime.h>
 
@@ -352,6 +400,80 @@ __global__ void __launch_bounds__(4 * TE) contract_G_Gw_kernel(
   copy_span<T, false>(Gw + kG * e0, sGw, kG * n * sz, u.Gw);
 }
 
+// K5: a thread per (row a of y, lattice vertex v) of the (NI+2, NJ+2, NK+2)
+// lattice; blockIdx.y is a
+template <typename T>
+__global__ void stencil_apply_kernel(const T* __restrict__ W, const T* __restrict__ x,
+                                     const T* __restrict__ fm, T* __restrict__ y,
+                                     int NI, int NJ, int NK, unsigned used) {
+  const int NJp = NJ + 2, NKp = NK + 2;
+  const int npad = (NI + 2) * NJp * NKp;
+  const int v = blockIdx.x * blockDim.x + threadIdx.x, a = blockIdx.y;
+  if (v >= npad) return;
+  const int k = v % NKp, j = (v / NKp) % NJp, i = v / (NJp * NKp);
+  if (i == 0 || j == 0 || k == 0 || i == NI + 1 || j == NJ + 1 || k == NK + 1) {
+    y[a * npad + v] = T(0);
+    return;
+  }
+  T acc = T(0);
+#pragma unroll
+  for (int o = 0; o < 27; ++o) {
+    if (!((used >> o) & 1u)) continue;
+    const int u = v + ((o / 9 - 1) * NJp + (o / 3 % 3 - 1)) * NKp + (o % 3 - 1);
+    const T* w = W + static_cast<size_t>(9 * o + 3 * a) * npad + v;
+    acc += w[0] * x[u] + w[npad] * x[npad + u] + w[2 * npad] * x[2 * npad + u];
+  }
+  y[a * npad + v] = fm == nullptr ? acc : acc * fm[a * npad + v];
+}
+
+// K6: a block per 32 lattice vertices, a warp per plane (threadIdx.y)
+constexpr int kK6Vertices = 32;
+
+template <typename T>
+__global__ void __launch_bounds__(kK6Vertices * 27) stencil_assemble_kernel(
+    const T* __restrict__ gw, const T* __restrict__ mass, const int* __restrict__ terms,
+    const int* __restrict__ plane_ptr, T* __restrict__ W, int NI, int NJ, int NK, int nslots) {
+  const int NJp = NJ + 2, NKp = NK + 2;
+  const int npad = (NI + 2) * NJp * NKp;
+  const int NIc = NI - 1, NJc = NJ - 1, NKc = NK - 1;
+  const int v = blockIdx.x * kK6Vertices + threadIdx.x, o = threadIdx.y;
+  if (v >= npad) return;
+  const int vk = v % NKp, vj = (v / NKp) % NJp, vi = v / (NJp * NKp);
+  T acc[9];
+#pragma unroll
+  for (int q = 0; q < 9; ++q) acc[q] = T(0);
+  const int end = plane_ptr[o + 1];
+  for (int q = plane_ptr[o]; q < end; ++q) {
+    const int* tm = terms + 8 * q;  // slot, a, b, parity, ca (3), 0
+    const int ci = vi - 1 - tm[4], cj = vj - 1 - tm[5], ck = vk - 1 - tm[6];
+    if (ci < 0 || cj < 0 || ck < 0 || ci >= NIc || cj >= NJc || ck >= NKc) continue;
+    if (((ci + cj + ck) & 1) != tm[3]) continue;
+    const size_t e = static_cast<size_t>((ci * NJc + cj) * NKc + ck) * nslots + tm[0];
+    const T* ga = gw + 72 * e + 3 * tm[1];
+    const T* gb = gw + 72 * e + 3 * tm[2];
+    T c[9];
+#pragma unroll
+    for (int r = 0; r < 3; ++r)
+#pragma unroll
+      for (int s = 0; s < 3; ++s) c[3 * r + s] = ga[r] * gb[s];
+#pragma unroll
+    for (int n = 1; n < 6; ++n)
+#pragma unroll
+      for (int r = 0; r < 3; ++r)
+#pragma unroll
+        for (int s = 0; s < 3; ++s) c[3 * r + s] += ga[12 * n + r] * gb[12 * n + s];
+    const T m = mass[16 * e + 4 * tm[1] + tm[2]];
+    c[0] += m;
+    c[4] += m;
+    c[8] += m;
+#pragma unroll
+    for (int q2 = 0; q2 < 9; ++q2) acc[q2] += c[q2];
+  }
+  T* w = W + static_cast<size_t>(9 * o) * npad + v;
+#pragma unroll
+  for (int q = 0; q < 9; ++q) w[static_cast<size_t>(q) * npad] = acc[q];
+}
+
 inline unsigned int blocks_for(long long n) {
   return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
 }
@@ -436,6 +558,30 @@ int launch_contract_tile(const T* D, const T* dphi, const T* Hs, const T* vol,
   }
 }
 
+template <typename T>
+int launch_stencil_apply(const T* W, const T* x, const T* fm, T* y, int NI, int NJ, int NK,
+                         int used, void* stream) {
+  const long long npad = static_cast<long long>(NI + 2) * (NJ + 2) * (NK + 2);
+  if (NI < 2 || NJ < 2 || NK < 2 || npad >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(blocks_for(npad), 3);
+  stencil_apply_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      W, x, fm, y, NI, NJ, NK, static_cast<unsigned>(used));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_stencil_assemble(const T* gw, const T* mass, const int* terms, const int* plane_ptr,
+                            T* W, int NI, int NJ, int NK, int nslots, void* stream) {
+  const long long npad = static_cast<long long>(NI + 2) * (NJ + 2) * (NK + 2);
+  if (NI < 2 || NJ < 2 || NK < 2 || nslots < 1 || 9 * 27 * npad >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 block(kK6Vertices, 27);
+  stencil_assemble_kernel<T><<<static_cast<unsigned>((npad + kK6Vertices - 1) / kK6Vertices), block,
+                               0, static_cast<cudaStream_t>(stream)>>>(gw, mass, terms, plane_ptr, W,
+                                                                       NI, NJ, NK, nslots);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -482,6 +628,16 @@ const char* mf_error_string(int code) {
     return launch_segment_sum<T>(true, row_ptr, slots, piece_ptr, seg_pieces,  \
                                  rows, part, out, nv, n_pieces, n_slots, m,   \
                                  stream);                                     \
+  }                                                                            \
+  int mf_stencil_apply_##SFX(const T* W, const T* x, const T* fm, T* y,        \
+                             int NI, int NJ, int NK, int used, void* stream) { \
+    return launch_stencil_apply<T>(W, x, fm, y, NI, NJ, NK, used, stream);     \
+  }                                                                            \
+  int mf_stencil_assemble_##SFX(const T* gw, const T* mass, const int* terms,  \
+                                const int* plane_ptr, T* W, int NI, int NJ,    \
+                                int NK, int nslots, void* stream) {            \
+    return launch_stencil_assemble<T>(gw, mass, terms, plane_ptr, W, NI, NJ,   \
+                                      NK, nslots, stream);                     \
   }
 
 MF_ENTRY_POINTS(float, f32)

@@ -10,8 +10,8 @@ outputs with ``torch.empty``, launches on ``torch.cuda.current_stream()``,
 raises if the launch reports a CUDA error, and adds one to its entry of
 ``LAUNCHES``. The launchers take CUDA tensors only: the CPU path is the plain
 PyTorch version beside each wrapper (ops/assembly.py, solvers/operator.py,
-ops/smallops.py, ops/banded_scatter.py), chosen there by the device of the
-input.
+ops/smallops.py, ops/banded_scatter.py, ops/stencil.py), chosen there by
+the device of the input.
 """
 
 from __future__ import annotations
@@ -94,8 +94,11 @@ def _load():
         getattr(lib, f"mf_contract_G_Gw_tile_{suffix}").argtypes = [vp] * 6 + [i32] * 2 + [vp]
         for name in ("segment_sum", "banded_sum"):
             getattr(lib, f"mf_{name}_{suffix}").argtypes = [vp] * 7 + [i32] * 4 + [vp]
+        getattr(lib, f"mf_stencil_apply_{suffix}").argtypes = [vp] * 4 + [i32] * 4 + [vp]
+        getattr(lib, f"mf_stencil_assemble_{suffix}").argtypes = [vp] * 5 + [i32] * 4 + [vp]
         for name in ("element_apply", "segment_sum", "contract_G_Gw",
-                     "contract_G_Gw_tile", "banded_sum"):
+                     "contract_G_Gw_tile", "banded_sum", "stencil_apply",
+                     "stencil_assemble"):
             getattr(lib, f"mf_{name}_{suffix}").restype = i32
     lib.mf_error_string.argtypes = [i32]
     lib.mf_error_string.restype = ctypes.c_char_p
@@ -252,3 +255,61 @@ def banded_sum(row_ptr, slots, rows, nv: int, piece_ptr=None,
                   seg_pieces)
     LAUNCHES[f"banded_sum_m{rows.shape[1]}"] += 1
     return out
+
+
+def _lattice(dims):
+    NI, NJ, NK = (int(n) for n in dims)
+    if min(NI, NJ, NK) < 2:
+        raise ValueError(f"a vertex lattice of {dims}: K5 and K6 take 2 or more a side")
+    return NI, NJ, NK, (NI + 2) * (NJ + 2) * (NK + 2)
+
+
+def stencil_apply(W, x, fm, dims, used: int) -> torch.Tensor:
+    """K5: y[a, v] = fm[a, v] sum_{o in used} sum_b W[o, a, b, v]
+    x[b, v + shift_o] on the ghost-padded lattice of `dims` vertices,
+    (3, npad), zero at the ghosts; `used` has bit o set for each offset
+    plane to read, and fm None means no mask."""
+    sfx = _float_dtype(x)
+    dev, dt = x.device, x.dtype
+    NI, NJ, NK, npad = _lattice(dims)
+    if not 0 <= used < 1 << 27:
+        raise ValueError(f"plane mask {used:#x} names planes outside 0..26")
+    _check(W, "W", (27, 3, 3, npad), dt, dev)
+    _check(x, "x", (3, npad), dt, dev)
+    if fm is not None:
+        _check(fm, "fm", (3, npad), dt, dev)
+    y = torch.empty((3, npad), dtype=dt, device=dev)
+    _launch(
+        "stencil_apply", sfx, W.data_ptr(), x.data_ptr(),
+        None if fm is None else fm.data_ptr(), y.data_ptr(), NI, NJ, NK, used,
+    )
+    LAUNCHES["stencil_apply"] += 1
+    return y
+
+
+def stencil_assemble(Gw, mass, term_table, plane_ptr, dims, nslots: int):
+    """K6: W (27, 3, 3, npad) from Gw (E, 6, 4, 3) and mass (E, 4, 4) of a
+    cell-major, slot-minor box grid: each plane o adds, at every lattice
+    vertex, its terms term_table[plane_ptr[o]:plane_ptr[o+1]] (rows of
+    slot, a, b, parity, corner offset of a, 0) in order, each the block
+    sum_n Gw[e, n, a] (x) Gw[e, n, b] + mass[e, a, b] I of the element
+    (cell, slot) whose corner a is the vertex, over the cells of the term's
+    parity; zero where no term lands."""
+    sfx = _float_dtype(Gw)
+    dev, dt = Gw.device, Gw.dtype
+    NI, NJ, NK, npad = _lattice(dims)
+    if nslots < 1:
+        raise ValueError(f"{nslots} slots per cell")
+    E = (NI - 1) * (NJ - 1) * (NK - 1) * nslots
+    _check(Gw, "Gw", (E, 6, 4, 3), dt, dev)
+    _check(mass, "mass", (E, 4, 4), dt, dev)
+    _check(term_table, "term_table", (term_table.shape[0], 8), torch.int32, dev)
+    _check(plane_ptr, "plane_ptr", (28,), torch.int32, dev)
+    W = torch.empty((27, 3, 3, npad), dtype=dt, device=dev)
+    _launch(
+        "stencil_assemble", sfx, Gw.data_ptr(), mass.data_ptr(),
+        term_table.data_ptr(), plane_ptr.data_ptr(), W.data_ptr(),
+        NI, NJ, NK, nslots,
+    )
+    LAUNCHES["stencil_assemble"] += 1
+    return W

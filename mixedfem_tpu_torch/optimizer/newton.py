@@ -12,7 +12,12 @@ Vertex sums go through the mesh's incidence plan (K2, and K1 + K2 for the
 CG matvec) or, when a banded plan is given (solvers/operator.py
 BandedPlan; the scene loader builds one on the card), through K4 (and
 K1 + K4 for the matvec), as the JAX step's `bassemble` and
-`banded_matvec` do.
+`banded_matvec` do. With a StencilPlan of a box grid (ops/stencil.py) the
+matvec is the lattice stencil K5 on blocks that K6 assembles once per
+Newton iteration: with no coarse space or a grid one the whole iteration
+follows the JAX step's row body (lattice CG, lattice preconditioner, the
+alpha-parametrized merit), with a geometric one the generic body (the
+configuration of the JAX package's entry()).
 
 The Newton loop, the CG loop and the line search are host loops; each
 convergence test reads one scalar from the device. Each stage runs under a
@@ -38,6 +43,9 @@ from mixedfem_tpu_torch.integrators import bdf as bdfmod
 from mixedfem_tpu_torch.mesh import mesh as meshmod
 from mixedfem_tpu_torch.ops import assembly
 from mixedfem_tpu_torch.ops import banded_scatter as bs
+from mixedfem_tpu_torch.ops import rotation
+from mixedfem_tpu_torch.ops import stencil as stmod
+from mixedfem_tpu_torch.ops import sym as symmod
 from mixedfem_tpu_torch.solvers import coarse as coarsemod
 from mixedfem_tpu_torch.solvers import factory
 from mixedfem_tpu_torch.solvers import operator as opmod
@@ -135,6 +143,34 @@ def check_supported(config: SimConfig) -> str:
     return solver
 
 
+def _select_body(config: SimConfig, coarse, matvec_plan) -> str:
+    """'grid', 'stencil' or 'generic', as the JAX step selects its Newton
+    body (mixedfem_tpu/optimizer/newton.py:387-405 and :611-633); raises
+    for the stencil branch this port does not cover."""
+    if not isinstance(matvec_plan, stmod.StencilPlan):
+        return "generic"
+    if coarse is not None and coarse.grid is None:
+        return "stencil"
+    if config.inertia_blend_factor != 1.0:
+        # the JAX step runs its element-major lattice-CG branch here
+        raise NotImplementedError(
+            "a stencil plan with inertia_blend_factor != 1 and no coarse "
+            "space or a grid one"
+        )
+    return "grid"
+
+
+def _line_search(E, eps_E: float, ls_iters: int, merit):
+    """Backtracking from alpha = 1: accept when merit(alpha) < E +
+    eps_E |E| (the rounding band); (alpha, accepted)."""
+    E_thresh = E + eps_E * E.abs()
+    alpha, ls_k = 1.0, 0
+    while ls_k < ls_iters and bool(merit(alpha) >= E_thresh):
+        alpha *= 0.5
+        ls_k += 1
+    return alpha, 1.0 if ls_k < ls_iters else 0.0
+
+
 def newton_step(
     mesh: meshmod.MeshData,
     config: SimConfig,
@@ -142,12 +178,17 @@ def newton_step(
     state: SimState,
     coarse: coarsemod.CoarseSpace | None = None,
     press_specs: Tuple[pressmod.PressSpec, ...] = (),
-    matvec_plan: opmod.BandedPlan | None = None,
+    matvec_plan: opmod.BandedPlan | stmod.StencilPlan | None = None,
 ) -> SimState:
     """One implicit BDF timestep. `coarse` enables the two-level
     rigid-body coarse preconditioner (solver 'pcg' only); `matvec_plan`
     (operator.build_banded_plan) sends the CG matvec and the once-per-Newton
-    assemblies through the banded sum (K4 on the card)."""
+    assemblies through the banded sum (K4 on the card), or, a StencilPlan
+    (stencil.build_stencil_plan) of a box grid in cell-major element order,
+    through the lattice stencil (K5, K6): with no coarse space or a grid
+    one (coarse.build_coarse_space_grid) the whole Newton iteration runs on
+    the lattice (the JAX step's row body), with a geometric coarse space
+    only the matvec and the assemblies do."""
     solver = check_supported(config)
     if config.rhs_precision == "float64" and state.x.dtype != torch.float64:
         raise NotImplementedError("rhs_precision='float64' islands")
@@ -166,7 +207,7 @@ def newton_step(
 
     def assemble(contrib):
         """(E, k, ...) corner contributions -> (nv, ...), in a fixed order."""
-        if matvec_plan is None:
+        if not isinstance(matvec_plan, opmod.BandedPlan):
             return assembly.segment_sum(mesh.plan, contrib)
         trail = tuple(contrib.shape[2:])
         rows = bs.pad_rows(matvec_plan, contrib.reshape(mesh.T.numel(), -1))
@@ -178,7 +219,9 @@ def newton_step(
 
     if solver != "pcg":
         coarse = None
+    body_kind = _select_body(config, coarse, matvec_plan)
     precond_out = state.precond
+    Ac_inv = None
     if coarse is not None:
         refresh_every = max(config.coarse_refresh_every, 1)
         cached = state.precond.shape[0] == coarse.ncd
@@ -206,16 +249,11 @@ def newton_step(
                 precond_out = Ac_inv
 
     eye = torch.eye(3, dtype=dtype, device=dev)
-    stats = empty_stats(outer, dtype, dev)
     eps_E = 0.0 if config.ls_strict else 16.0 * torch.finfo(dtype).eps
-    x, s, la = state.x, state.s, state.la
-    it = 0
-    E_prev = torch.zeros((), dtype=dtype, device=dev)
-    dec = res = float("inf")
 
-    while it < outer and dec > config.newton_tol and res > 1e-12:
+    def generic_body(x, s):
         with record_function("newton.update"):
-            # --- assemble: inertia gradient, rhs, block-Jacobi blocks (K2)
+            # --- assemble: inertia gradient, rhs, block-Jacobi blocks
             b = -meshmod.project_free(mesh, assemble(disp.gradient_contrib(
                 mesh, bdf, x, blend=config.inertia_blend_factor
             )))
@@ -223,12 +261,18 @@ def newton_step(
             b = b + meshmod.project_free(
                 mesh, assemble(ms.rhs_contrib(mesh, coeffs, s))
             )
-            blocks = mesh.mass_diag[:, None, None] * eye + assemble(
-                ms.diag_blocks_contrib(mesh, coeffs)
-            )
+            if body_kind == "stencil":
+                # the offset-form blocks (K6); their o=0 plane is the exact
+                # block-Jacobi diagonal
+                W = stmod.assemble_W(matvec_plan, coeffs.Gw, mesh.mass_coeff)
+                blocks = stmod.diag_blocks(matvec_plan, W)
+            else:
+                blocks = mesh.mass_diag[:, None, None] * eye + assemble(
+                    ms.diag_blocks_contrib(mesh, coeffs)
+                )
 
         with record_function("newton.pcg"):
-            # --- condensed SPD solve (K1 + K2, or K1 + K4, matvec)
+            # --- condensed SPD solve (K1 + K2, K1 + K4, or K5 matvec)
             bj = pcgmod.block_jacobi_inv(blocks, mesh.free_mask)
             if coarse is not None:
                 tl = coarsemod.two_level_preconditioner(coarse, mesh.free_mask, bj)
@@ -239,6 +283,9 @@ def newton_step(
                 Minv = bj
 
             def A(p):
+                if body_kind == "stencil":
+                    return stmod.stencil_matvec(matvec_plan, W, p) * \
+                        mesh.free_mask[:, None]
                 if matvec_plan is None:
                     return opmod.element_matvec(mesh, p, coeffs)
                 return opmod.banded_matvec(mesh, matvec_plan, p, coeffs)
@@ -254,25 +301,94 @@ def newton_step(
             # --- local recovery of (ds, la)
             ds, la_new = ms.local_solve(mesh, coeffs, s, dx)
             dec_t = torch.maximum(dx.abs().amax(), ds.abs().amax())
-
             # --- merit at the base point (reuses S(x) from the update)
             E = _total_energy(mesh, bdf, h2, x, s, la_new, Sv=coeffs.Sv)
-            res_t = torch.abs((E - E_prev) / (E + 1e-6))
-            E_thresh = E + eps_E * E.abs()
-
-            # --- backtracking line search: accept when E(a) < E(0) + band
-            alpha, ls_k = 1.0, 0
-            while ls_k < config.ls_iters and bool(
-                _total_energy(mesh, bdf, h2, x + alpha * dx, s + alpha * ds, la_new)
-                >= E_thresh
-            ):
-                alpha *= 0.5
-                ls_k += 1
-            accept = 1.0 if ls_k < config.ls_iters else 0.0
+            alpha, accept = _line_search(
+                E, eps_E, config.ls_iters, lambda a: _total_energy(
+                    mesh, bdf, h2, x + a * dx, s + a * ds, la_new))
             x = x + (accept * alpha) * dx
             s = s + (accept * alpha) * ds
-            la = la_new
+        return x, s, la_new, (E, dec_t, alpha, cg_iters, cg_err)
 
+    if body_kind == "grid":
+        # per-step hoists of the lattice body
+        plan = matvec_plan
+        fm_l = stmod.to_lat(
+            plan, mesh.free_mask[:, None].expand(mesh.nv, 3).to(dtype))
+        target_l = stmod.to_lat(plan, target)
+
+    def grid_body(x, s):
+        """The JAX step's lattice (row) body, element-major: lattice CG on
+        (3, npad) vectors with the stencil matvec (K5), W assembled by K6,
+        block-Jacobi from its o=0 plane, and the alpha-parametrized merit
+        with dF hoisted out of the line search."""
+        with record_function("newton.update"):
+            coeffs = ms.update(mesh, x, s, dt)                  # K3
+            W = stmod.assemble_W(plan, coeffs.Gw, mesh.mass_coeff)   # K6
+            blocks = stmod.diag_blocks(plan, W)
+            # M (x - target) and the stretch rhs, assembled (K2)
+            Min_l = stmod.to_lat(
+                plan, assemble(disp.gradient_contrib(mesh, bdf, x)))
+            rhs_l = stmod.to_lat(plan, assemble(ms.rhs_contrib(mesh, coeffs, s)))
+            b_l = (rhs_l - Min_l) * fm_l
+
+        with record_function("newton.pcg"):
+            maskv = mesh.free_mask[:, None, None]
+            binv = pcgmod._small_inv(blocks * maskv + eye * (1.0 - maskv)) * maskv
+            Minv_lat = stmod.lattice_two_level_preconditioner(
+                plan, coarse, mesh.free_mask, binv, 3)
+
+            def Minv_l(rl):
+                return Minv_lat(rl, Ac_inv)
+
+            def A_l(pl_):
+                return stmod.matvec_lat(plan, W, pl_, fm_l)      # K5
+
+            x_l = stmod.to_lat(plan, x)
+            dx_l, cg_iters, cg_err = pcgmod.pcg(
+                A_l, b_l, (target_l - x_l) * fm_l, Minv_l,
+                max_iters=config.max_iterative_solver_iters,
+                tol=config.itr_tol,
+            )
+
+        with record_function("newton.line_search"):
+            dx = stmod.from_lat(plan, dx_l)
+            ds, la_new = ms.local_solve(mesh, coeffs, s, dx)
+            dec_t = torch.maximum(dx_l.abs().amax(), ds.abs().amax())
+            # the inertia term is an exact quadratic in alpha, and def_grad
+            # is linear in x: F(x + a dx) = F + a dF. Its coefficients are
+            # dot products of lattice vectors, as in the JAX body.
+            E_in0 = 0.5 * torch.sum((x_l - target_l) * Min_l)
+            gin = torch.sum(Min_l * dx_l)
+            dxMdx = torch.sum(dx_l * stmod.to_lat(
+                plan, meshmod.mass_matvec(mesh, dx)))
+            Fx = meshmod.def_grad(mesh, x)
+            dF = meshmod.def_grad(mesh, dx)
+
+            def merit(a):
+                s_a = s + a * ds
+                Sva = symmod.pack(rotation.polar33(Fx + a * dF)[1])
+                return (E_in0 + a * gin + (0.5 * a * a) * dxMdx
+                        + h2 * ms.energy(mesh, s_a)
+                        + ms.constraint_value(mesh, None, s_a, la_new, Sv=Sva))
+
+            # base-point merit: reuses S(x) from the update
+            E = (E_in0 + h2 * ms.energy(mesh, s)
+                 + ms.constraint_value(mesh, None, s, la_new, Sv=coeffs.Sv))
+            alpha, accept = _line_search(E, eps_E, config.ls_iters, merit)
+            x = x + (accept * alpha) * dx
+            s = s + (accept * alpha) * ds
+        return x, s, la_new, (E, dec_t, alpha, cg_iters, cg_err)
+
+    body = grid_body if body_kind == "grid" else generic_body
+    stats = empty_stats(outer, dtype, dev)
+    x, s, la = state.x, state.s, state.la
+    it = 0
+    E_prev = torch.zeros((), dtype=dtype, device=dev)
+    dec = res = float("inf")
+    while it < outer and dec > config.newton_tol and res > 1e-12:
+        x, s, la, (E, dec_t, alpha, cg_iters, cg_err) = body(x, s)
+        res_t = torch.abs((E - E_prev) / (E + 1e-6))
         stats.energy[it] = E
         stats.energy_res[it] = res_t
         stats.decrement[it] = dec_t

@@ -1,7 +1,10 @@
 """Two-level preconditioner: block-Jacobi smoother plus a rigid-body coarse
-solve (port of the unstructured branch of mixedfem_tpu/solvers/coarse.py).
+solve (port of mixedfem_tpu/solvers/coarse.py).
 
-Vertices are aggregated into geometric clusters; each aggregate is spanned
+Vertices are aggregated into geometric clusters (build_coarse_space) or,
+on a structured vertex lattice, into lattice blocks (build_coarse_space_grid,
+whose `grid` marker lets the restriction and prolongation run as lattice
+reshape-sums); each aggregate is spanned
 by its 6 rigid-body modes about its centroid. The Galerkin matrix
 A_c = P^T A P is assembled element-wise, inverted densely on the device and
 applied as M^{-1} r = blockJacobi(r) + P A_c^{-1} P^T r.
@@ -38,6 +41,9 @@ class CoarseSpace:
     agg_plan: assembly.IncidencePlan   # aggregate <- vertex, for P^T r
     pair_plan: assembly.IncidencePlan  # bucket <- (e, k, l), for A_c
     naggr: int
+    # lattice-block aggregation ((NI, NJ, NK), (bi, bj, bk)), aggregates in
+    # row-major block order; None for geometric clusters
+    grid: Optional[tuple] = None
 
     @property
     def ncd(self) -> int:
@@ -49,7 +55,7 @@ def _no_tf32() -> None:
 
 
 def coarse_from_arrays(*, agg_id, r, pair_id, pair_rows, pair_cols, naggr,
-                       dtype, device) -> CoarseSpace:
+                       dtype, device, grid=None) -> CoarseSpace:
     def i64(a):
         return torch.as_tensor(np.asarray(a).astype(np.int64), device=device)
 
@@ -64,7 +70,23 @@ def coarse_from_arrays(*, agg_id, r, pair_id, pair_rows, pair_cols, naggr,
             pair_id, len(np.asarray(pair_rows)), device
         ),
         naggr=int(naggr),
+        grid=None if grid is None else (
+            tuple(int(n) for n in grid[0]), tuple(int(b) for b in grid[1])),
     )
+
+
+def _pair_buckets(agg_id, T, naggr):
+    """Aggregate-pair bucket of every element corner pair (static
+    topology): (pair_id (E, k, k), pair_rows, pair_cols)."""
+    T = np.asarray(T)
+    E, k = T.shape
+    ak = agg_id[T]
+    prs = np.stack(
+        [np.repeat(ak, k, axis=1), np.tile(ak, (1, k))], axis=-1
+    ).reshape(-1, 2)
+    flatp = prs[:, 0].astype(np.int64) * naggr + prs[:, 1]
+    uniqp, pid = np.unique(flatp, return_inverse=True)
+    return pid.reshape(E, k, k), uniqp // naggr, uniqp % naggr
 
 
 def build_coarse_space(
@@ -98,20 +120,65 @@ def build_coarse_space(
     cent /= cnt[:, None]
     r = V - cent[agg_id]
     r[np.asarray(is_fixed, bool)] = 0.0
-
-    # aggregate-pair buckets per element corner pair (static topology)
-    T = np.asarray(T)
-    E, k = T.shape
-    ak = agg_id[T]
-    prs = np.stack(
-        [np.repeat(ak, k, axis=1), np.tile(ak, (1, k))], axis=-1
-    ).reshape(-1, 2)
-    flatp = prs[:, 0].astype(np.int64) * naggr + prs[:, 1]
-    uniqp, pid = np.unique(flatp, return_inverse=True)
+    pair_id, pair_rows, pair_cols = _pair_buckets(agg_id, T, naggr)
     return coarse_from_arrays(
-        agg_id=agg_id, r=r, pair_id=pid.reshape(E, k, k),
-        pair_rows=uniqp // naggr, pair_cols=uniqp % naggr, naggr=naggr,
-        dtype=dtype, device=dev,
+        agg_id=agg_id, r=r, pair_id=pair_id, pair_rows=pair_rows,
+        pair_cols=pair_cols, naggr=naggr, dtype=dtype, device=dev,
+    )
+
+
+def build_coarse_space_grid(
+    V: np.ndarray,
+    T: np.ndarray,
+    is_fixed: np.ndarray,
+    grid_dims: tuple[int, int, int],
+    block=None,
+    target_size: int = 48,
+    dtype=torch.float32,
+    device="cuda",
+) -> CoarseSpace:
+    """Lattice-block aggregation of a structured box grid (ops/stencil.py):
+    an aggregate is a (bi, bj, bk) vertex sub-lattice. `block=None` picks
+    per-axis sizes so that blocks are about physically cubic with about
+    target_size vertices. Host numpy, then moved to `device`."""
+    dev = resolve_device(device)
+    V = np.asarray(V, np.float64)
+    nv, d = V.shape
+    NI, NJ, NK = grid_dims
+    if NI * NJ * NK != nv:
+        raise ValueError(f"a {grid_dims} lattice for {nv} vertices")
+    if block is None:
+        spacing = np.array([
+            (V[:, 0].max() - V[:, 0].min()) / max(NI - 1, 1),
+            (V[:, 1].max() - V[:, 1].min()) / max(NJ - 1, 1),
+            (V[:, 2].max() - V[:, 2].min()) / max(NK - 1, 1),
+        ])
+        spacing = np.maximum(spacing, 1e-12)
+        edge = (np.prod(spacing) * target_size) ** (1.0 / 3.0)
+        block = np.maximum(1, np.rint(edge / spacing).astype(int))
+    if np.isscalar(block):
+        block = (int(block),) * 3
+    bi, bj, bk = int(block[0]), int(block[1]), int(block[2])
+    nbi, nbj, nbk = -(-NI // bi), -(-NJ // bj), -(-NK // bk)
+    ii, jj, kk = np.meshgrid(
+        np.arange(NI), np.arange(NJ), np.arange(NK), indexing="ij"
+    )
+    agg_id = ((ii // bi) * nbj + (jj // bj)) * nbk + (kk // bk)
+    agg_id = agg_id.reshape(-1).astype(np.int64)
+    naggr = nbi * nbj * nbk
+
+    cent = np.zeros((naggr, d))
+    cnt = np.zeros(naggr)
+    np.add.at(cent, agg_id, V)
+    np.add.at(cnt, agg_id, 1.0)
+    cent /= np.maximum(cnt, 1.0)[:, None]
+    r = V - cent[agg_id]
+    r[np.asarray(is_fixed, bool)] = 0.0
+    pair_id, pair_rows, pair_cols = _pair_buckets(agg_id, T, naggr)
+    return coarse_from_arrays(
+        agg_id=agg_id, r=r, pair_id=pair_id, pair_rows=pair_rows,
+        pair_cols=pair_cols, naggr=naggr, dtype=dtype, device=dev,
+        grid=((NI, NJ, NK), (bi, bj, bk)),
     )
 
 
@@ -207,20 +274,53 @@ def coarse_inverse_ns(
     return ns(cold, cold_iters)
 
 
+def grid_transfer(cs: CoarseSpace):
+    """(restrict, prolong) of a grid coarse space: per-vertex rigid-mode
+    weights (nv, 6) summed per lattice block by a reshape-sum, and
+    per-aggregate values (naggr, 6) broadcast back to the block's
+    vertices."""
+    (NI, NJ, NK), (bi, bj, bk) = cs.grid
+    nbi, nbj, nbk = -(-NI // bi), -(-NJ // bj), -(-NK // bk)
+    pad = (0, 0, 0, nbk * bk - NK, 0, nbj * bj - NJ, 0, nbi * bi - NI)
+
+    def restrict(w):
+        w3 = torch.nn.functional.pad(w.reshape(NI, NJ, NK, 6), pad)
+        return (w3.reshape(nbi, bi, nbj, bj, nbk, bk, 6)
+                .sum(dim=(1, 3, 5)).reshape(cs.naggr, 6))
+
+    def prolong(zc):
+        z6 = (zc.reshape(nbi, 1, nbj, 1, nbk, 1, 6)
+              .expand(nbi, bi, nbj, bj, nbk, bk, 6)
+              .reshape(nbi * bi, nbj * bj, nbk * bk, 6))
+        return z6[:NI, :NJ, :NK].reshape(NI * NJ * NK, 6)
+
+    return restrict, prolong
+
+
 def two_level_preconditioner(cs: CoarseSpace, free_mask, bj_apply, dim: int = 3):
     """M^{-1}(r, Ac_inv) = bj_apply(r) + P Ac_inv P^T r, with the per-vertex
     rigid-mode matrix hoisted out of the CG loop. The restriction P^T r
     sums per aggregate through the aggregate incidence plan (kernel K2 on
-    the card), so every CG iteration is deterministic."""
+    the card), so every CG iteration is deterministic; on a grid coarse
+    space it is a lattice reshape-sum and the prolongation a broadcast."""
     _no_tf32()
     B = _vert_modes(cs, free_mask, dim)
     fm = free_mask[:, None]
 
+    if cs.grid is not None:
+        restrict, prolong_modes = grid_transfer(cs)
+    else:
+
+        def restrict(w):
+            return assembly.segment_sum(cs.agg_plan, w[:, None, :])
+
+        def prolong_modes(zc):
+            return zc[cs.agg_id]
+
     def apply(r, Ac_inv):
         z = bj_apply(r)
-        w = torch.einsum("nda,nd->na", B, r)
-        rc = assembly.segment_sum(cs.agg_plan, w[:, None, :])
+        rc = restrict(torch.einsum("nda,nd->na", B, r))
         zc = (Ac_inv @ rc.reshape(-1)).reshape(cs.naggr, 6)
-        return z + torch.einsum("nda,na->nd", B, zc[cs.agg_id]) * fm
+        return z + torch.einsum("nda,na->nd", B, prolong_modes(zc)) * fm
 
     return apply

@@ -5,8 +5,9 @@ held to its plain PyTorch version on the same CUDA inputs: float64 to 1e-12
 and float32 to 1e-5 of the output's scale (the kernels sum in another order
 than the plain versions). A short float64 step on the card goes through K1-K3
 and matches the CPU's step; a loaded scene steps through K4 and repeats bit
-for bit. This file imports neither JAX nor
-the JAX package, so it also runs where only PyTorch is installed:
+for bit; K5 and K6 are held to theirs on box grids up to the bench's 100k
+tets, and a grid step through them repeats bit for bit. This file imports
+neither JAX nor the JAX package, so it also runs where only PyTorch is installed:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 
@@ -312,3 +313,147 @@ def test_float32_scene_step_repeats_on_card(card, tmp_path):
         assert not cuda.LAUNCHES.get("segment_sum_m3", 0)
     assert torch.equal(runs[0].x, runs[1].x)
     assert torch.equal(runs[0].stats.energy, runs[1].stats.energy)
+
+
+def _grid_plan(cells, device):
+    from mixedfem_tpu_torch.ops import stencil as tst
+
+    nx, ny, nz = cells
+    V, T = generators.box_tet_mesh(nx, ny, nz, size=(4.0, 1.0, 1.0))
+    plan, perm = tst.build_stencil_plan(T, len(V), (nx + 1, ny + 1, nz + 1),
+                                        device=device)
+    return V, T[perm], plan
+
+
+def _view(shape, dtype, device, gen, offset):
+    """A contiguous view `offset` elements into its storage."""
+    n = int(np.prod(shape))
+    buf = torch.randn(n + offset, generator=gen, dtype=dtype, device=device)
+    return buf[offset:].view(shape)
+
+
+# (cells, offset): the 100k-tet bench grid; lattices whose vertex counts are
+# no multiple of K5's 128 threads or K6's 32 vertices a block (6x4x8: 480
+# padded vertices; a single cell: 64); views 1-3 elements into storage
+STENCIL_CASES = [((40, 25, 20), 0), ((5, 3, 7), 0), ((1, 1, 1), 0),
+                 ((5, 3, 7), 1), ((6, 4, 3), 3)]
+
+
+@pytest.mark.parametrize("cells,offset", STENCIL_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_stencil_kernels_match_plain(card, dtype, cells, offset):
+    """K6 (stencil_assemble) and K5 (stencil_apply, with and without the
+    free mask, x = 0 pinned) against their plain versions on the same
+    inputs: f64 to 1e-12 and f32 to 1e-5 of the output's scale. K5 also
+    runs on a W with rows at the ghost vertices and in the 8 planes the
+    plan leaves empty, which it must neither read nor pass on."""
+    from mixedfem_tpu_torch.ops import stencil as tst
+
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    V, T, plan = _grid_plan(cells, card)
+    E, npad = len(T), plan.npad
+    g = torch.Generator(device=card).manual_seed(sum(cells) + offset)
+    Gw = _view((E, 6, 4, 3), dtype, card, g, offset)
+    mass = _view((E, 4, 4), dtype, card, g, offset).abs_()
+    cuda.LAUNCHES.clear()
+    W = tst.assemble_W(plan, Gw, mass)
+    ref = tst.assemble_W_plain(plan, Gw, mass)
+    assert cuda.LAUNCHES["stencil_assemble"] == 1
+
+    def check(got, want):
+        torch.cuda.synchronize()
+        assert got.shape == want.shape
+        scale = want.abs().max().item()
+        assert scale > 0
+        assert (got - want).abs().max().item() <= tol * scale
+
+    check(W, ref)
+    fixed = torch.tensor(V[:, 0] < 1e-9, device=card)
+    fm = tst.to_lat(plan, (~fixed).to(dtype)[:, None].expand(-1, 3))
+    x = _view((3, npad), dtype, card, g, offset)
+    fm_v = _view((3, npad), dtype, card, g, offset)
+    fm_v.copy_(fm)
+    Wr = _view((27, 3, 3, npad), dtype, card, g, offset)
+    for W_ in (W, Wr):
+        for f in (None, fm_v):
+            check(tst.matvec_lat(plan, W_, x, f),
+                  tst.stencil_apply_plain(plan, W_, x, f))
+    assert cuda.LAUNCHES["stencil_apply"] == 4
+
+
+def test_stencil_kernels_repeat_bit_for_bit(card):
+    """Both kernels add in a fixed order: two launches on the same inputs
+    give the same bits."""
+    from mixedfem_tpu_torch.ops import stencil as tst
+
+    _, T, plan = _grid_plan((12, 7, 5), card)
+    g = torch.Generator(device=card).manual_seed(3)
+    Gw = torch.randn(len(T), 6, 4, 3, generator=g, device=card)
+    mass = torch.rand(len(T), 4, 4, generator=g, device=card)
+    W1, W2 = (tst.assemble_W(plan, Gw, mass) for _ in range(2))
+    x = torch.randn(3, plan.npad, generator=g, device=card)
+    assert torch.equal(W1, W2)
+    assert torch.equal(tst.matvec_lat(plan, W1, x), tst.matvec_lat(plan, W2, x))
+
+
+def test_stencil_wrappers_check_their_inputs(card):
+    from mixedfem_tpu_torch.ops import stencil as tst
+
+    _, T, plan = _grid_plan((3, 2, 2), card)
+    npad, dims = plan.npad, (plan.NI, plan.NJ, plan.NK)
+    W = torch.zeros(27, 3, 3, npad, device=card)
+    x = torch.zeros(3, npad, device=card)
+    with pytest.raises(ValueError):
+        cuda.stencil_apply(W[:, :, :, :-1], x[:, :-1], None, dims, plan.used_mask)
+    with pytest.raises(TypeError):
+        cuda.stencil_apply(W.double(), x, None, dims, plan.used_mask)
+    with pytest.raises(ValueError):
+        cuda.stencil_apply(W, x, None, dims, 1 << 27)
+    with pytest.raises(ValueError):
+        cuda.stencil_assemble(torch.zeros(len(T) - 1, 6, 4, 3, device=card),
+                              torch.zeros(len(T) - 1, 4, 4, device=card),
+                              plan.term_table, plan.plane_ptr, dims, plan.nslots)
+
+
+def _grid_step_setup(cells, dtype, device, coarse=True):
+    from mixedfem_tpu_torch.config import enu_to_lame
+
+    V, T, plan = _grid_plan(cells, device)
+    la, mu = enu_to_lame(1e6, 0.45)
+    fixed = V[:, 0] < 1e-9
+    mesh = tmesh.build_mesh_data(
+        V, T, density=np.full(len(T), 1000.0), mu=np.full(len(T), mu),
+        lam=np.full(len(T), la), model_id=np.zeros(len(T), int),
+        models=("Stable-Neohookean",), is_fixed=fixed,
+        ext_force=np.tile(np.array([0.0, -9.8, 0.0]), (len(V), 1)),
+        dtype=dtype, device=device)
+    cs = None
+    if coarse:
+        cs = tcoarse.build_coarse_space_grid(
+            V, T, fixed, (plan.NI, plan.NJ, plan.NK), dtype=dtype,
+            device=device)
+    return mesh, plan, cs
+
+
+def test_float32_grid_step_repeats_on_card(card):
+    """The grid body's sums all run in a fixed order (K2, K3, K5, K6), so
+    two float32 runs of two steps from the same state agree bit for bit."""
+    cfg = SimConfig(h=DT, outer_steps=3, newton_tol=0.0, dtype="float32",
+                    coarse_refresh_every=10)
+    mesh, plan, cs = _grid_step_setup((10, 6, 5), torch.float32, card)
+    x0 = mesh.V0.clone()
+    runs = []
+    for _ in range(2):
+        cuda.LAUNCHES.clear()
+        st = newton.init_state(mesh, cfg, (), x0, torch.zeros_like(x0))
+        st.precond = torch.zeros((cs.ncd, cs.ncd), device=card)
+        for _ in range(2):
+            st = newton.newton_step(mesh, cfg, (), st, cs, (), plan)
+        runs.append(st)
+        for k in ("stencil_apply", "stencil_assemble", "contract_G_Gw",
+                  "segment_sum_m3", "segment_sum_m36"):
+            assert cuda.LAUNCHES.get(k, 0) > 0, k
+        assert cuda.LAUNCHES.get("element_apply", 0) == 0
+    assert torch.equal(runs[0].x, runs[1].x)
+    assert torch.equal(runs[0].stats.energy, runs[1].stats.energy)
+    assert runs[0].stats.solver_iters.tolist() == runs[1].stats.solver_iters.tolist()

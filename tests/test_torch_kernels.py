@@ -13,6 +13,8 @@ JAX package's functions on the same inputs:
                                 (f32, 3e-6)
   K3 (contract_G_Gw)        vs  tests/test_torch_step.py::test_contractions
                                 and ::test_contract_G_Gw_tile_edges
+  K5, K6 (stencil_apply,    vs  tests/test_torch_stencil.py
+  stencil_assemble)
 The kernels themselves are held to the plain versions on the card by
 tests/test_torch_cuda.py."""
 
@@ -258,9 +260,21 @@ def test_launchers_take_cuda_tensors_only():
         cuda.contract_G_Gw_tile(f(2, 6, 3, 3), f(2, 4, 3), f(2, 6, 6), f(2), 32)
     with pytest.raises(ValueError, match="tile 48"):
         cuda.contract_G_Gw_tile(f(2, 6, 3, 3), f(2, 4, 3), f(2, 6, 6), f(2), 48)
+    i32 = torch.int32
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cuda.stencil_apply(f(27, 3, 3, 64), f(3, 64), None, (2, 2, 2), 1)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cuda.stencil_assemble(f(5, 6, 4, 3), f(5, 4, 4),
+                              torch.zeros(160, 8, dtype=i32),
+                              torch.zeros(28, dtype=i32), (2, 2, 2), 5)
     plan = assembly.build_incidence_plan(T.numpy(), 5, "cpu")
     assembly.segment_sum(plan, f(2, 4, 3))
     smallops.contract_G_Gw(f(2, 6, 3, 3), f(2, 4, 3), f(2, 6, 6), f(2))
+    from mixedfem_tpu_torch.ops import stencil
+    V, Tg = generators.box_tet_mesh(1, 1, 1)
+    sp, _ = stencil.build_stencil_plan(Tg, len(V), (2, 2, 2), device="cpu")
+    W = stencil.assemble_W(sp, f(5, 6, 4, 3), f(5, 4, 4))
+    stencil.matvec_lat(sp, W, f(3, sp.npad), f(3, sp.npad))
     assert sum(cuda.LAUNCHES.values()) == 0
 
 
