@@ -775,7 +775,8 @@ def profile_step(step, out_dir, name, untraced_ms):
     hand = []
     for a in avgs:
         m = re.search(r"\b(?:element_apply|segment_sum|contract_G_Gw|banded_sum"
-                      r"|stencil_apply|stencil_assemble)_kernel\w*<[^>]*>", a.key)
+                      r"|stencil_apply|stencil_assemble|stencil_zero_planes)"
+                      r"_kernel\w*<[^>]*>", a.key)
         if m and a.device_type == torch.autograd.DeviceType.CUDA:
             hand.append(f"  kernel {m.group(0):40s} launches {a.count:4d} device "
                         f"{a.self_device_time_total / 1e3:8.3f} ms")

@@ -89,18 +89,28 @@
 //     ghosts. Bound: bytes. The 19 planes of W that the 5-tet split uses,
 //     and x, fm and y once: 19.9 MB at 100k tets f32 (27,692 lattice
 //     vertices), 5.9 us at 3.35 TB/s; 2 flop per W value is negligible.
-//     Design: a thread per (row a of y, lattice vertex), 83,076 threads at
-//     100k tets (a thread per vertex, 27,692 threads on 132 SMs, took
-//     22.2 us: too few loads in flight). W is feature-major with the vertex
-//     minor, so each of a thread's 57 reads of W is coalesced across a warp
-//     as it stands; the planes the plan never uses are skipped by a bit
-//     mask, x[v + shift] comes from L1/L2 (the three rows of x are 0.33
-//     MB), and a ghost vertex writes zeros without reading (its shifts
-//     would leave the array). The sum runs over the planes in ascending
-//     order, as the plain version adds them. Measured at 100k tets on an
-//     NVIDIA H100 80GB HBM3 at 700 W: 17.7 us in f32 with W read from
-//     device memory (3.0x its bound), 9.4 us with W in L2; 19.0 / 12.5 us
-//     in f64 (bound 11.9 us).
+//     Design: a thread per (row a of y, lattice vertex), 128 threads a
+//     block. The used planes come by value as flat shifts, and a mask of
+//     exactly 19 planes takes a path whose plane loop is unrolled at
+//     compile time (all 19 planes in float32, 10 at a time in float64), so
+//     a thread's loads of W wait on no branch; any other mask takes the
+//     same kernel's runtime loop. W is feature-major with the vertex minor,
+//     so each load of W is coalesced across a warp. x[v + shift] comes
+//     from L1/L2 (the three rows of x are 0.33 MB), and a ghost reads x at
+//     vertex (1, 1, 1), whose shifts stay in the array, and writes 0.
+//     Planes are added in ascending order, each as w0 x0 + w1 x1 + w2 x2, the
+//     free mask last, as in the previous design, so y keeps its bits.
+//     Measured at 100k tets on an NVIDIA H100 80GB HBM3 at 700.00 W: 12.19
+//     us in f32 with W read from device memory (2.0x its bound; 17.56 in the
+//     previous design, whose per-plane branch held back its loads), 6.51 us
+//     with W in L2 (9.28); 22.25 / 16.64 us in f64 (bound 11.90; 18.65 /
+//     12.37), where ptxas gives the kernel 32 registers and issues few
+//     planes' loads together (a form of this body with one-element arrays
+//     got 80 registers and 17.2 us; a full unroll was slower). Trial builds
+//     on that card with 2 or 4 consecutive vertices a thread (vector loads
+//     of W) took 16.0 and 25.7 us cold, the x reads no longer coalescing;
+//     64, 128 and 256 threads a block were within 0.5% of one another; x
+//     staged through shared memory with its halo took 18.0 us or more.
 //
 // K6 stencil_assemble  builds W once per Newton iteration, the function of
 //     mixedfem_tpu/ops/stencil.py:_assemble_terms (XLA on the TPU, ~160
@@ -111,25 +121,32 @@
 //     bytes. Gw (28.8 MB) and mass (6.4 MB) read once and the 19 planes of
 //     W that the terms touch written once (18.9 MB; the other 8 are zeros
 //     that need not be stored): 54.1 MB at 100k tets f32, 16.2 us at 3.35
-//     TB/s. The kernel also writes the 8 zero planes (8.0 MB, about 2.4
-//     us at that rate). Design: gather, no atomics. A block
-//     takes 32 consecutive lattice vertices and all 27 planes (a warp per
-//     plane); each thread walks its plane's terms in the plan's order, adds
-//     the block of the one cell whose corner a sits at its vertex when that
-//     cell exists and has the term's parity, and stores its 9 sums with
-//     coalesced writes. The order of every sum is the plan's, so a run
-//     repeats bit for bit. The 27 warps of a block read the same ~40
-//     elements' rows, which L1 can serve after the first read. 52 registers
-//     a thread in f32, 72 in f64, no spills. Measured at 100k tets on an
-//     NVIDIA H100 80GB HBM3 at 700 W: 248 us in f32 (15x its bound), 471
-//     us in f64 (bound 32.3 us): a warp's lanes read 32 elements 1,440
-//     bytes apart (Gw is element-major), and the centre plane's warp adds
-//     20 blocks at each vertex against about 3 for the others. Staging the
-//     cell rows around a lattice line through shared memory is the next
-//     design; it is 1.25 ms of a step that the host bounds at about 1 s.
+//     TB/s. Design: gather, no atomics. The 8 planes no term touches are
+//     written as zeros by a launch of vector stores. A block takes a tile
+//     of TI x TJ x TK lattice vertices and copies the cells around it, a
+//     line of cells along k being one span of Gw, into shared memory with
+//     cp.async. A vertex of even parity takes 128 terms and one of odd
+//     parity 32, the centre plane 32 and 8 of them; the host schedule
+//     (ops/stencil.py:k6_schedule) deals each parity's planes into jobs of
+//     whole planes, 4 + 1 jobs of 32 terms for a pair of vertices along k,
+//     and a thread per (pair, job, row of the block) adds each of its
+//     planes' terms in the plan's order, so that every sum keeps the previous
+//     design's order and W its bits. Tile 2 x 2 x 6 and 192 threads in
+//     float32, 1 x 2 x 8 and 128 in float64 (the best of a sweep of 6 and 4
+//     tiles in trial builds on the card), two blocks an SM in float32.
+//     Measured at 100k tets on an NVIDIA H100 80GB HBM3 at 700.00 W: 91.81
+//     us in f32 (5.7x its bound; 246.09 in the previous design, a warp per
+//     plane whose lanes read elements 1,440 bytes apart and whose
+//     centre-plane warp added 20 blocks a vertex against about 3), 203.81
+//     us in f64 (bound 32.32; 468.31). What holds it there:
+//     shared-memory reads (25 a thread and term, with bank conflicts between
+//     the cells of neighbouring pairs), the tile's halo (63 cells staged for
+//     24 vertices, each cell in reach of 8), and the plan's order, which
+//     keeps each plane's sum on one thread.
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 #include <type_traits>
 
@@ -400,78 +417,224 @@ __global__ void __launch_bounds__(4 * TE) contract_G_Gw_kernel(
   copy_span<T, false>(Gw + kG * e0, sGw, kG * n * sz, u.Gw);
 }
 
-// K5: a thread per (row a of y, lattice vertex v) of the (NI+2, NJ+2, NK+2)
-// lattice; blockIdx.y is a
+// K5's planes: the used offsets, ascending, as flat lattice shifts and as
+// the first of their 9 rows of W (9 o); passed by value
+struct K5Planes {
+  int n;
+  int shift[27];
+  int row[27];
+};
+
+// the planes of the 5-tet split (ops/stencil.py), K5's unrolled path
+constexpr int kK5Planes = 19;
+// K5's threads a block
+constexpr int kK5Threads = 128;
+// planes whose loads a K5 thread issues together: all 19 in float32, 10 in
+// float64, which moves twice the bytes a plane (see K5's note above)
 template <typename T>
-__global__ void stencil_apply_kernel(const T* __restrict__ W, const T* __restrict__ x,
-                                     const T* __restrict__ fm, T* __restrict__ y,
-                                     int NI, int NJ, int NK, unsigned used) {
+constexpr int kK5Unroll = sizeof(T) == 4 ? kK5Planes : 10;
+
+// K5: a thread per (row a of y, lattice vertex v of the (NI+2, NJ+2, NK+2)
+// lattice); blockIdx.y is a. NP > 0: exactly NP planes, the loop unrolled,
+// so a thread's loads of W do not wait on one another; NP == 0: p.n planes.
+template <typename T, int NP>
+__global__ void stencil_apply_kernel(
+    const T* __restrict__ W, const T* __restrict__ x, const T* __restrict__ fm,
+    T* __restrict__ y, int NI, int NJ, int NK, K5Planes p) {
   const int NJp = NJ + 2, NKp = NK + 2;
   const int npad = (NI + 2) * NJp * NKp;
   const int v = blockIdx.x * blockDim.x + threadIdx.x, a = blockIdx.y;
   if (v >= npad) return;
+  // the x base: the vertex itself inside the lattice; vertex (1, 1, 1) at a
+  // ghost, whose every shift stays in the array (its sum is thrown away)
   const int k = v % NKp, j = (v / NKp) % NJp, i = v / (NJp * NKp);
-  if (i == 0 || j == 0 || k == 0 || i == NI + 1 || j == NJ + 1 || k == NK + 1) {
-    y[a * npad + v] = T(0);
-    return;
-  }
+  const bool inner = i > 0 && j > 0 && k > 0 && i <= NI && j <= NJ && k <= NK;
+  const int xv = inner ? v : NJp * NKp + NKp + 1;
   T acc = T(0);
-#pragma unroll
-  for (int o = 0; o < 27; ++o) {
-    if (!((used >> o) & 1u)) continue;
-    const int u = v + ((o / 9 - 1) * NJp + (o / 3 % 3 - 1)) * NKp + (o % 3 - 1);
-    const T* w = W + static_cast<size_t>(9 * o + 3 * a) * npad + v;
+  auto plane = [&](int q) {
+    const T* w = W + static_cast<size_t>(p.row[q] + 3 * a) * npad + v;
+    const int u = xv + p.shift[q];
     acc += w[0] * x[u] + w[npad] * x[npad + u] + w[2 * npad] * x[2 * npad + u];
+  };
+  if constexpr (NP > 0) {
+#pragma unroll(kK5Unroll<T>)
+    for (int q = 0; q < NP; ++q) plane(q);
+  } else {
+#pragma unroll 1
+    for (int q = 0; q < p.n; ++q) plane(q);
   }
-  y[a * npad + v] = fm == nullptr ? acc : acc * fm[a * npad + v];
+  y[static_cast<size_t>(a) * npad + v] =
+      inner ? (fm == nullptr ? acc : acc * fm[static_cast<size_t>(a) * npad + v]) : T(0);
 }
 
-// K6: a block per 32 lattice vertices, a warp per plane (threadIdx.y)
-constexpr int kK6Vertices = 32;
-
+// K6's tile (TI x TJ x TK lattice vertices, TK even) and threads a block
+// for each type, the best of a sweep on the card (see K6's note above);
+// float64 takes a smaller tile, so that its cells fit in shared memory
+struct K6Tile {
+  int TI, TJ, TK, threads;
+};
 template <typename T>
-__global__ void __launch_bounds__(kK6Vertices * 27) stencil_assemble_kernel(
+__host__ __device__ constexpr K6Tile k6_tile() {
+  return sizeof(T) == 4 ? K6Tile{2, 2, 6, 192} : K6Tile{1, 2, 8, 128};
+}
+// (K6 is bounded at one block an SM, which lets the compiler keep both
+// terms' loads in registers; without that bound it held fewer and ran
+// slower in trial runs)
+constexpr int kK6MaxThreads = 256;
+// K6: terms whose loads a thread has in flight at once
+constexpr int kK6Terms = 2;
+
+// N values of T at one aligned address: one vector store
+template <typename T, int N>
+struct alignas(sizeof(T) * N) Pack {
+  T v[N];
+};
+
+// K6's zero planes: the planes no term touches (plane_ptr[o] ==
+// plane_ptr[o + 1]) written as zeros, N values a store where the plane's
+// start allows it; blockIdx.y is the plane
+template <typename T, int N>
+__global__ void stencil_zero_planes_kernel(const int* __restrict__ plane_ptr, T* __restrict__ W,
+                                           int npad) {
+  const int o = blockIdx.y;
+  if (plane_ptr[o] != plane_ptr[o + 1]) return;
+  const long long n = 9LL * npad;
+  T* w = W + o * n;
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long t0 = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const Pack<T, N> zero{};
+  for (long long q = t0; q < n / N; q += step) reinterpret_cast<Pack<T, N>*>(w)[q] = zero;
+  for (long long q = n / N * N + t0; q < n; q += step) w[q] = T(0);
+}
+
+// K6: a block per tile of TI x TJ x TK lattice vertices. The block copies
+// the (TI+1)(TJ+1)(TK+1) cells around the tile into shared memory (a warp
+// per cell, Gw then mass of the cell's slots, cs values a cell, cs odd so
+// that neighbouring cells start in other banks) and turns the schedule's
+// entries into offsets in that layout; then a thread per (pair of vertices
+// along k, job, row r) adds, for each plane of its job, the plane's terms
+// in the plan's order into the 3 sums of row r, with the loads of two terms
+// in flight at once, and stores them. The schedule
+// (ops/stencil.py:k6_schedule): [0] J0, [1] J1 (jobs of the vertex of even
+// parity, then of odd), [2] plane records, [3] term entries, [4 .. 4 + J0 +
+// J1] job_ptr, then (plane o, first entry, end entry) per record, then the
+// entries (term row ids, plan order within a plane; one per term row, so
+// nterms of them: shared memory is laid out for that many, and a schedule
+// that names another count stops the kernel).
+template <typename T>
+__global__ void __launch_bounds__(kK6MaxThreads, 1) stencil_assemble_kernel(
     const T* __restrict__ gw, const T* __restrict__ mass, const int* __restrict__ terms,
-    const int* __restrict__ plane_ptr, T* __restrict__ W, int NI, int NJ, int NK, int nslots) {
-  const int NJp = NJ + 2, NKp = NK + 2;
-  const int npad = (NI + 2) * NJp * NKp;
+    const int* __restrict__ sched, T* __restrict__ W, int NI, int NJ, int NK, int nslots,
+    int nterms, int sched_len, int cs) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr K6Tile tl = k6_tile<T>();
+  const int NIp = NI + 2, NJp = NJ + 2, NKp = NK + 2;
   const int NIc = NI - 1, NJc = NJ - 1, NKc = NK - 1;
-  const int v = blockIdx.x * kK6Vertices + threadIdx.x, o = threadIdx.y;
-  if (v >= npad) return;
-  const int vk = v % NKp, vj = (v / NKp) % NJp, vi = v / (NJp * NKp);
-  T acc[9];
-#pragma unroll
-  for (int q = 0; q < 9; ++q) acc[q] = T(0);
-  const int end = plane_ptr[o + 1];
-  for (int q = plane_ptr[o]; q < end; ++q) {
-    const int* tm = terms + 8 * q;  // slot, a, b, parity, ca (3), 0
-    const int ci = vi - 1 - tm[4], cj = vj - 1 - tm[5], ck = vk - 1 - tm[6];
+  const int npad = NIp * NJp * NKp;
+  const int ntj = (NJp + tl.TJ - 1) / tl.TJ, ntk = (NKp + tl.TK - 1) / tl.TK;
+  const int i0 = blockIdx.x / (ntj * ntk) * tl.TI;
+  const int j0 = blockIdx.x / ntk % ntj * tl.TJ;
+  const int k0 = blockIdx.x % ntk * tl.TK;
+  const int CJ = tl.TJ + 1, CK = tl.TK + 1, ncell = (tl.TI + 1) * CJ * CK;
+  const int J0 = sched[0], J = J0 + sched[1], nrec = sched[2], nent = nterms;
+  if (sched[3] != nterms) __trap();
+  // shared memory: the entries (int4), the schedule, then the cells
+  int4* s_ent = reinterpret_cast<int4*>(smem_raw);
+  int* s_sched = reinterpret_cast<int*>(s_ent + nent);
+  T* cells = reinterpret_cast<T*>(smem_raw + ((16 * nent + 4 * sched_len + 15) & ~15));
+  const int gvals = 72 * nslots, mvals = 16 * nslots;
+  const int lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
+  for (int c = threadIdx.x >> 5; c < ncell; c += nwarps) {
+    const int lk = c % CK, lj = c / CK % CJ, li = c / (CK * CJ);
+    const int ci = i0 - 2 + li, cj = j0 - 2 + lj, ck = k0 - 2 + lk;
     if (ci < 0 || cj < 0 || ck < 0 || ci >= NIc || cj >= NJc || ck >= NKc) continue;
-    if (((ci + cj + ck) & 1) != tm[3]) continue;
-    const size_t e = static_cast<size_t>((ci * NJc + cj) * NKc + ck) * nslots + tm[0];
-    const T* ga = gw + 72 * e + 3 * tm[1];
-    const T* gb = gw + 72 * e + 3 * tm[2];
-    T c[9];
-#pragma unroll
-    for (int r = 0; r < 3; ++r)
-#pragma unroll
-      for (int s = 0; s < 3; ++s) c[3 * r + s] = ga[r] * gb[s];
-#pragma unroll
-    for (int n = 1; n < 6; ++n)
-#pragma unroll
-      for (int r = 0; r < 3; ++r)
-#pragma unroll
-        for (int s = 0; s < 3; ++s) c[3 * r + s] += ga[12 * n + r] * gb[12 * n + s];
-    const T m = mass[16 * e + 4 * tm[1] + tm[2]];
-    c[0] += m;
-    c[4] += m;
-    c[8] += m;
-#pragma unroll
-    for (int q2 = 0; q2 < 9; ++q2) acc[q2] += c[q2];
+    const size_t cell = (static_cast<size_t>(ci) * NJc + cj) * NKc + ck;
+    T* dst = cells + c * cs;
+    for (int u = lane; u < gvals; u += 32) cp_async<sizeof(T)>(dst + u, gw + cell * gvals + u);
+    for (int u = lane; u < mvals; u += 32) cp_async<sizeof(T)>(dst + gvals + u, mass + cell * mvals + u);
   }
-  T* w = W + static_cast<size_t>(9 * o) * npad + v;
+  cp_async_commit();
+  for (int q = threadIdx.x; q < sched_len; q += blockDim.x) s_sched[q] = sched[q];
+  // an entry, from its term row (slot, a, b, parity, ca, 0): the offset of
+  // its cell below the vertex's cell v - 1 (ca = 0), the offsets of Gw[t, :,
+  // a] and Gw[t, :, b] and of mass[t, a, b] in a cell, and ca as 4 cai + 2
+  // caj + cak
+  const int* ents = sched + 5 + J + 3 * nrec;
+  for (int e = threadIdx.x; e < nent; e += blockDim.x) {
+    const int* tm = terms + 8 * ents[e];
+    const int t = tm[0], a = tm[1], b = tm[2];
+    s_ent[e] = make_int4(((tm[4] * CJ + tm[5]) * CK + tm[6]) * cs, (72 * t + 3 * a) | (72 * t + 3 * b) << 16,
+                         gvals + 16 * t + 4 * a + b, 4 * tm[4] + 2 * tm[5] + tm[6]);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int* job_ptr = s_sched + 4;
+  const int* recs = job_ptr + J + 1;
+  const int half = tl.TK / 2, npairs = tl.TI * tl.TJ * half;
+  for (int w3 = threadIdx.x; w3 < 3 * npairs * J; w3 += blockDim.x) {
+    const int w = w3 / 3, r = w3 - 3 * w;
+    const int job = w / npairs, pair = w - job * npairs;
+    const int pk = pair % half, pj = pair / half % tl.TJ, pi = pair / (half * tl.TJ);
+    const int vi = i0 + pi, vj = j0 + pj, vk0 = k0 + 2 * pk;
+    // the pair's vertex of even parity takes jobs [0, J0), the other the rest
+    const int vk = vk0 + (((vi + vj + vk0) & 1) != (job >= J0 ? 1 : 0));
+    if (vi >= NIp || vj >= NJp || vk >= NKp) continue;
+    // bit 4 cai + 2 caj + cak: the cell v - 1 - ca lies in the lattice
+    unsigned ok = 0;
 #pragma unroll
-  for (int q = 0; q < 9; ++q) w[static_cast<size_t>(q) * npad] = acc[q];
+    for (int q = 0; q < 8; ++q) {
+      const int ci = vi - 1 - (q >> 2), cj = vj - 1 - (q >> 1 & 1), ck = vk - 1 - (q & 1);
+      ok |= static_cast<unsigned>(ci >= 0 && cj >= 0 && ck >= 0 && ci < NIc && cj < NJc && ck < NKc) << q;
+    }
+    const T* vcell = cells + (((pi + 1) * CJ + pj + 1) * CK + vk - k0 + 1) * cs;
+    for (int rc = job_ptr[job]; rc < job_ptr[job + 1]; ++rc) {
+      T acc[3] = {T(0), T(0), T(0)};
+      const int end = recs[3 * rc + 2];
+      for (int e0 = recs[3 * rc + 1]; e0 < end; e0 += kK6Terms) {
+        // the loads of kK6Terms terms first, then their row of the block
+        // sum_n Gw[e, n, a] (x) Gw[e, n, b] + mass[e, a, b] I, in the previous
+        // design's order; a term is added where its cell exists (an absent
+        // cell's slot in shared memory was never filled)
+        T ga[kK6Terms][6], gb[kK6Terms][18], m[kK6Terms];
+        bool use[kK6Terms];
+#pragma unroll
+        for (int u = 0; u < kK6Terms; ++u) {
+          const int4 d = s_ent[min(e0 + u, end - 1)];
+          use[u] = e0 + u < end && ((ok >> d.w) & 1u);
+          const T* cell = vcell - d.x;
+          const T* pa = cell + (d.y & 0xffff) + r;
+          const T* pb = cell + (d.y >> 16);
+#pragma unroll
+          for (int n = 0; n < 6; ++n) {
+            ga[u][n] = pa[12 * n];
+#pragma unroll
+            for (int s = 0; s < 3; ++s) gb[u][3 * n + s] = pb[12 * n + s];
+          }
+          m[u] = cell[d.z];
+        }
+#pragma unroll
+        for (int u = 0; u < kK6Terms; ++u) {
+          T c[3];
+#pragma unroll
+          for (int s = 0; s < 3; ++s) c[s] = ga[u][0] * gb[u][s];
+#pragma unroll
+          for (int n = 1; n < 6; ++n)
+#pragma unroll
+            for (int s = 0; s < 3; ++s) c[s] += ga[u][n] * gb[u][3 * n + s];
+#pragma unroll
+          for (int s = 0; s < 3; ++s)
+            if (s == r) c[s] += m[u];
+          if (use[u])
+#pragma unroll
+            for (int s = 0; s < 3; ++s) acc[s] += c[s];
+        }
+      }
+      T* wo = W + static_cast<size_t>(9 * recs[3 * rc] + 3 * r) * npad + (static_cast<size_t>(vi) * NJp + vj) * NKp + vk;
+#pragma unroll
+      for (int s = 0; s < 3; ++s) wo[static_cast<size_t>(s) * npad] = acc[s];
+    }
+  }
 }
 
 inline unsigned int blocks_for(long long n) {
@@ -558,27 +721,68 @@ int launch_contract_tile(const T* D, const T* dphi, const T* Hs, const T* vol,
   }
 }
 
+// K5 over the planes of `used` (bit o for plane o): the unrolled path for
+// kK5Planes planes, else the runtime loop
 template <typename T>
 int launch_stencil_apply(const T* W, const T* x, const T* fm, T* y, int NI, int NJ, int NK,
                          int used, void* stream) {
   const long long npad = static_cast<long long>(NI + 2) * (NJ + 2) * (NK + 2);
-  if (NI < 2 || NJ < 2 || NK < 2 || npad >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(blocks_for(npad), 3);
-  stencil_apply_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      W, x, fm, y, NI, NJ, NK, static_cast<unsigned>(used));
+  if (NI < 2 || NJ < 2 || NK < 2 || 9 * 27 * npad >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int NJp = NJ + 2, NKp = NK + 2;
+  K5Planes p{};
+  for (int o = 0; o < 27; ++o) {
+    if (!((static_cast<unsigned>(used) >> o) & 1u)) continue;
+    p.shift[p.n] = ((o / 9 - 1) * NJp + (o / 3 % 3 - 1)) * NKp + (o % 3 - 1);
+    p.row[p.n] = 9 * o;
+    ++p.n;
+  }
+  const dim3 grid(static_cast<unsigned>((npad + kK5Threads - 1) / kK5Threads), 3);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (p.n == kK5Planes)
+    stencil_apply_kernel<T, kK5Planes><<<grid, kK5Threads, 0, s>>>(W, x, fm, y, NI, NJ, NK, p);
+  else
+    stencil_apply_kernel<T, 0><<<grid, kK5Threads, 0, s>>>(W, x, fm, y, NI, NJ, NK, p);
   return static_cast<int>(cudaGetLastError());
 }
 
+// K6 over nterms term rows and the schedule of sched_len values built from
+// them: the zero planes first, then the tiles
 template <typename T>
 int launch_stencil_assemble(const T* gw, const T* mass, const int* terms, const int* plane_ptr,
-                            T* W, int NI, int NJ, int NK, int nslots, void* stream) {
+                            const int* sched, T* W, int NI, int NJ, int NK, int nslots, int nterms,
+                            int sched_len, void* stream) {
   const long long npad = static_cast<long long>(NI + 2) * (NJ + 2) * (NK + 2);
-  if (NI < 2 || NJ < 2 || NK < 2 || nslots < 1 || 9 * 27 * npad >= (1LL << 31))
+  constexpr K6Tile tl = k6_tile<T>();
+  if (NI < 2 || NJ < 2 || NK < 2 || nslots < 1 || nslots > 255 || nterms < 0 ||
+      sched_len < 5 + nterms || 9 * 27 * npad >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 block(kK6Vertices, 27);
-  stencil_assemble_kernel<T><<<static_cast<unsigned>((npad + kK6Vertices - 1) / kK6Vertices), block,
-                               0, static_cast<cudaStream_t>(stream)>>>(gw, mass, terms, plane_ptr, W,
-                                                                       NI, NJ, NK, nslots);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // a cell's slots in shared memory take an odd number of values, so that
+  // the cells of neighbouring threads start in different banks
+  const int cs = 88 * nslots + (88 * nslots + 1) % 2;
+  const size_t smem = ((static_cast<size_t>(16) * nterms + 4 * sched_len + 15) & ~static_cast<size_t>(15)) +
+                      static_cast<size_t>(tl.TI + 1) * (tl.TJ + 1) * (tl.TK + 1) * cs * sizeof(T);
+  if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = stencil_assemble_kernel<T>;
+  cudaError_t err = cudaSuccess;
+  if (smem > 48 * 1024)  // opt in above the default 48 KB
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr int kVecN = 16 / sizeof(T);
+  const long long plane = 9 * npad;
+  const bool vec = reinterpret_cast<uintptr_t>(W) % 16 == 0 && plane % kVecN == 0;
+  const dim3 zgrid(static_cast<unsigned>(std::min<long long>(64, (plane / kVecN + 255) / 256)), 27);
+  if (vec)
+    stencil_zero_planes_kernel<T, kVecN><<<zgrid, 256, 0, s>>>(plane_ptr, W, static_cast<int>(npad));
+  else
+    stencil_zero_planes_kernel<T, 1><<<zgrid, 256, 0, s>>>(plane_ptr, W, static_cast<int>(npad));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long ntiles = ((NI + 2 + tl.TI - 1) / tl.TI) * static_cast<long long>((NJ + 2 + tl.TJ - 1) / tl.TJ) *
+                           ((NK + 2 + tl.TK - 1) / tl.TK);
+  kernel<<<static_cast<unsigned>(ntiles), tl.threads, smem, s>>>(
+      gw, mass, terms, sched, W, NI, NJ, NK, nslots, nterms, sched_len, cs);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -634,10 +838,12 @@ const char* mf_error_string(int code) {
     return launch_stencil_apply<T>(W, x, fm, y, NI, NJ, NK, used, stream);     \
   }                                                                            \
   int mf_stencil_assemble_##SFX(const T* gw, const T* mass, const int* terms,  \
-                                const int* plane_ptr, T* W, int NI, int NJ,    \
-                                int NK, int nslots, void* stream) {            \
-    return launch_stencil_assemble<T>(gw, mass, terms, plane_ptr, W, NI, NJ,   \
-                                      NK, nslots, stream);                     \
+                                const int* plane_ptr, const int* sched, T* W,  \
+                                int NI, int NJ, int NK, int nslots,            \
+                                int nterms, int sched_len, void* stream) {     \
+    return launch_stencil_assemble<T>(gw, mass, terms, plane_ptr, sched, W,    \
+                                      NI, NJ, NK, nslots, nterms, sched_len,   \
+                                      stream);                                 \
   }
 
 MF_ENTRY_POINTS(float, f32)

@@ -95,7 +95,7 @@ def _load():
         for name in ("segment_sum", "banded_sum"):
             getattr(lib, f"mf_{name}_{suffix}").argtypes = [vp] * 7 + [i32] * 4 + [vp]
         getattr(lib, f"mf_stencil_apply_{suffix}").argtypes = [vp] * 4 + [i32] * 4 + [vp]
-        getattr(lib, f"mf_stencil_assemble_{suffix}").argtypes = [vp] * 5 + [i32] * 4 + [vp]
+        getattr(lib, f"mf_stencil_assemble_{suffix}").argtypes = [vp] * 6 + [i32] * 6 + [vp]
         for name in ("element_apply", "segment_sum", "contract_G_Gw",
                      "contract_G_Gw_tile", "banded_sum", "stencil_apply",
                      "stencil_assemble"):
@@ -287,29 +287,38 @@ def stencil_apply(W, x, fm, dims, used: int) -> torch.Tensor:
     return y
 
 
-def stencil_assemble(Gw, mass, term_table, plane_ptr, dims, nslots: int):
+def stencil_assemble(Gw, mass, term_table, plane_ptr, dims, nslots: int,
+                     schedule):
     """K6: W (27, 3, 3, npad) from Gw (E, 6, 4, 3) and mass (E, 4, 4) of a
     cell-major, slot-minor box grid: each plane o adds, at every lattice
     vertex, its terms term_table[plane_ptr[o]:plane_ptr[o+1]] (rows of
     slot, a, b, parity, corner offset of a, 0) in order, each the block
     sum_n Gw[e, n, a] (x) Gw[e, n, b] + mass[e, a, b] I of the element
     (cell, slot) whose corner a is the vertex, over the cells of the term's
-    parity; zero where no term lands."""
+    parity; zero where no term lands. `schedule` is the kernel's job table
+    over those rows (ops/stencil.py:k6_schedule, StencilPlan.schedule),
+    one entry per row. One count, two launches: the planes no term
+    touches, then the tiles."""
     sfx = _float_dtype(Gw)
     dev, dt = Gw.device, Gw.dtype
     NI, NJ, NK, npad = _lattice(dims)
-    if nslots < 1:
-        raise ValueError(f"{nslots} slots per cell")
+    if not 1 <= nslots <= 255:
+        raise ValueError(f"{nslots} slots per cell: K6 takes 1 to 255")
     E = (NI - 1) * (NJ - 1) * (NK - 1) * nslots
     _check(Gw, "Gw", (E, 6, 4, 3), dt, dev)
     _check(mass, "mass", (E, 4, 4), dt, dev)
     _check(term_table, "term_table", (term_table.shape[0], 8), torch.int32, dev)
     _check(plane_ptr, "plane_ptr", (28,), torch.int32, dev)
+    nterms = term_table.shape[0]
+    _check(schedule, "schedule", (schedule.shape[0],), torch.int32, dev)
+    if schedule.shape[0] < 5 + nterms:
+        raise ValueError(f"a schedule of {schedule.shape[0]} values for "
+                         f"{nterms} term rows: K6 takes one entry per row")
     W = torch.empty((27, 3, 3, npad), dtype=dt, device=dev)
     _launch(
         "stencil_assemble", sfx, Gw.data_ptr(), mass.data_ptr(),
-        term_table.data_ptr(), plane_ptr.data_ptr(), W.data_ptr(),
-        NI, NJ, NK, nslots,
+        term_table.data_ptr(), plane_ptr.data_ptr(), schedule.data_ptr(),
+        W.data_ptr(), NI, NJ, NK, nslots, nterms, schedule.shape[0],
     )
     LAUNCHES["stencil_assemble"] += 1
     return W

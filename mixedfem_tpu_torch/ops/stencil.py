@@ -11,11 +11,14 @@ offsets occur for the 5-tet split; the other 8 planes stay zero.
 
   assemble_W   W from Gw (E, 6, 4, 3) and the mass blocks, once per Newton
                iteration: kernel K6 (csrc/kernels.cu:stencil_assemble_kernel)
-               on a CUDA tensor, a thread per (lattice vertex, plane) adding
-               the plan's terms in plan order, no atomics.
+               on a CUDA tensor, a block per tile of lattice vertices with
+               the tile's cells staged in shared memory, a thread per (pair
+               of vertices along k, job of the host schedule k6_schedule,
+               row of the block) adding each of its planes' terms in plan
+               order, no atomics.
   matvec_lat   y = fm * (A x) on (3, npad) lattice vectors, every CG
                iteration: kernel K5 (stencil_apply_kernel), a thread per
-               (row of y, lattice vertex).
+               (row of y, lattice vertex), the used planes unrolled.
 
 The JAX package's TPU layout devices (masked pad-and-sum windows, the
 (feat, E) rows of ops/rows.py) are not carried over: the corner gather is
@@ -58,6 +61,7 @@ class StencilPlan:
     corner_lat: torch.Tensor   # (E, k) int64 padded-lattice id per corner
     term_table: torch.Tensor   # (nterms, 8) int32 K6's terms, plane-major
     plane_ptr: torch.Tensor    # (28,) int32 K6's terms of plane o
+    schedule: torch.Tensor     # int32 K6's jobs over term_table (k6_schedule)
     NI: int
     NJ: int
     NK: int
@@ -188,15 +192,67 @@ def plan_from_terms(NI, NJ, NK, nslots, terms, vec_terms, masks,
     plane_ptr = np.zeros(28, np.int32)
     np.cumsum(np.bincount([t[5] for t in terms], minlength=27),
               out=plane_ptr[1:])
+    if not set(np.unique(table[:, 4:7])) <= {0, 1}:
+        raise ValueError("the plan's corner offsets must lie in {0, 1}")
     return StencilPlan(
         masks=torch.tensor(np.asarray(masks, np.float32), device=dev),
         corner_lat=torch.as_tensor(lat, device=dev),
         term_table=torch.as_tensor(table, device=dev),
         plane_ptr=torch.as_tensor(plane_ptr, device=dev),
+        schedule=torch.as_tensor(k6_schedule(table, plane_ptr), device=dev),
         NI=int(NI), NJ=int(NJ), NK=int(NK), nslots=int(nslots),
         terms=terms, vec_terms=vec_terms,
         used=tuple(sorted({t[5] for t in terms})),
     )
+
+
+def k6_schedule(table: np.ndarray, plane_ptr: np.ndarray) -> np.ndarray:
+    """K6's jobs over its plane-major term rows `table` (slot, a, b,
+    parity, ca, 0) with plane bounds `plane_ptr`.
+
+    A vertex of padded-lattice parity q = (i + j + k) % 2 takes a term of
+    parity p and corner offset ca where the cell v - 1 - ca has parity p,
+    that is where (q + 1 + |ca|) % 2 == p. For each q, every plane with
+    terms is a record: the plane and its terms for q in plan order (none:
+    the record stores zeros). Each q's records are dealt into
+    ceil(terms / C) jobs, C the largest record, the largest record first,
+    each into the job with the fewest terms so far; a job lists its
+    records by plane. A thread of K6 takes one job of one vertex, and a
+    pair of vertices along k (one of each parity) about C terms a job.
+    Layout (int32): J0, J1 (jobs of parity 0, then 1), the number of
+    records and of entries, job_ptr (J0 + J1 + 1 record bounds), then
+    (plane, first entry, end entry) per record, then the entries (rows of
+    `table`)."""
+    table = np.asarray(table).reshape(-1, 8)
+    plane_ptr = np.asarray(plane_ptr)
+    by_parity = []
+    for q in (0, 1):
+        recs = []
+        for o in range(27):
+            rows = np.arange(plane_ptr[o], plane_ptr[o + 1])
+            if len(rows):
+                take = (q + 1 + table[rows, 4:7].sum(1)) % 2 == table[rows, 3]
+                recs.append((o, rows[take].tolist()))
+        by_parity.append(recs)
+    cap = max([len(rows) for recs in by_parity for _, rows in recs] + [1])
+    jobs, njobs = [], []
+    for recs in by_parity:
+        n = max(1, -(-sum(len(rows) for _, rows in recs) // cap))
+        load, dealt = [0] * n, [[] for _ in range(n)]
+        for o, rows in sorted(recs, key=lambda rec: (-len(rec[1]), rec[0])):
+            j = min(range(n), key=lambda j: (load[j], j))
+            dealt[j].append((o, rows))
+            load[j] += len(rows)
+        jobs += [sorted(d) for d in dealt]
+        njobs.append(n)
+    job_ptr, recs, ents = [0], [], []
+    for job in jobs:
+        for o, rows in job:
+            recs += [o, len(ents), len(ents) + len(rows)]
+            ents += rows
+        job_ptr.append(len(recs) // 3)
+    return np.array([*njobs, len(recs) // 3, len(ents), *job_ptr, *recs,
+                     *ents], np.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -266,7 +322,7 @@ def assemble_W(plan: StencilPlan, Gw: torch.Tensor,
         return assemble_W_plain(plan, Gw, mass)
     return cuda.stencil_assemble(
         Gw.contiguous(), mass.contiguous(), plan.term_table, plan.plane_ptr,
-        (plan.NI, plan.NJ, plan.NK), plan.nslots,
+        (plan.NI, plan.NJ, plan.NK), plan.nslots, plan.schedule,
     )
 
 

@@ -333,10 +333,13 @@ def _view(shape, dtype, device, gen, offset):
 
 
 # (cells, offset): the 100k-tet bench grid; lattices whose vertex counts are
-# no multiple of K5's 128 threads or K6's 32 vertices a block (6x4x8: 480
-# padded vertices; a single cell: 64); views 1-3 elements into storage
+# no multiple of K5's threads a block or K6's tiles (6x4x8: 480 padded
+# vertices; a single cell: 64); padded vertex counts that are odd (7x5x5:
+# 175, 5x7x9: 315) or even but no multiple of 4 (9x7x6: 378), so that no
+# plane of W starts 16 bytes after another; views 1-3 elements into storage
 STENCIL_CASES = [((40, 25, 20), 0), ((5, 3, 7), 0), ((1, 1, 1), 0),
-                 ((5, 3, 7), 1), ((6, 4, 3), 3)]
+                 ((5, 3, 7), 1), ((6, 4, 3), 3), ((4, 2, 2), 0),
+                 ((2, 4, 6), 1)]
 
 
 @pytest.mark.parametrize("cells,offset", STENCIL_CASES)
@@ -396,6 +399,76 @@ def test_stencil_kernels_repeat_bit_for_bit(card):
     assert torch.equal(tst.matvec_lat(plan, W1, x), tst.matvec_lat(plan, W2, x))
 
 
+@pytest.mark.parametrize("cells", [(40, 25, 20), (4, 2, 2), (6, 4, 3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_stencil_apply_other_planes(card, dtype, cells):
+    """K5 with a plane mask other than the plan's 19 planes (all 27, and a
+    seeded random subset of 11), through its generic path, against the
+    plain sum over the same planes, on a W with rows in every plane."""
+    import dataclasses
+
+    from mixedfem_tpu_torch.ops import stencil as tst
+
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    _, _, plan = _grid_plan(cells, card)
+    npad, dims = plan.npad, (plan.NI, plan.NJ, plan.NK)
+    g = torch.Generator(device=card).manual_seed(5)
+    W = torch.randn(27, 3, 3, npad, generator=g, dtype=dtype, device=card)
+    x = torch.randn(3, npad, generator=g, dtype=dtype, device=card)
+    fm = (torch.rand(3, npad, generator=g, device=card) > 0.2).to(dtype)
+    subset = np.sort(np.random.default_rng(1).choice(27, 11, replace=False))
+    for planes in (tuple(range(27)), tuple(int(o) for o in subset)):
+        assert len(planes) != len(plan.used)
+        mask = sum(1 << o for o in planes)
+        ref = tst.stencil_apply_plain(dataclasses.replace(plan, used=planes),
+                                      W, x, fm)
+        got = cuda.stencil_apply(W, x, fm, dims, mask)
+        torch.cuda.synchronize()
+        scale = ref.abs().max().item()
+        assert scale > 0
+        assert (got - ref).abs().max().item() <= tol * scale, planes
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_stencil_assemble_zero_planes(card, dtype):
+    """K6 writes the 8 planes that no term touches as exact zeros, into
+    memory that held NaN just before."""
+    from mixedfem_tpu_torch.ops import stencil as tst
+
+    for cells in ((40, 25, 20), (4, 2, 2), (6, 4, 3)):
+        _, T, plan = _grid_plan(cells, card)
+        g = torch.Generator(device=card).manual_seed(2)
+        Gw = torch.randn(len(T), 6, 4, 3, generator=g, dtype=dtype, device=card)
+        mass = torch.rand(len(T), 4, 4, generator=g, dtype=dtype, device=card)
+        junk = torch.full((27, 3, 3, plan.npad), float("nan"), dtype=dtype,
+                          device=card)
+        del junk
+        W = tst.assemble_W(plan, Gw, mass)
+        unused = [o for o in range(27) if o not in plan.used]
+        torch.cuda.synchronize()
+        assert len(unused) == 8
+        assert torch.count_nonzero(W[unused]).item() == 0, cells
+        assert torch.isfinite(W).all(), cells
+
+
+def test_stencil_assemble_checks_its_schedule(card):
+    """K6 refuses, before a launch, a schedule too short to hold an entry
+    for each term row; the plan's own schedule runs."""
+    from mixedfem_tpu_torch.ops import stencil as tst
+
+    _, T, plan = _grid_plan((3, 2, 2), card)
+    dims = (plan.NI, plan.NJ, plan.NK)
+    Gw = torch.zeros(len(T), 6, 4, 3, device=card)
+    mass = torch.zeros(len(T), 4, 4, device=card)
+    with pytest.raises(ValueError, match="one entry per row"):
+        cuda.stencil_assemble(Gw, mass, plan.term_table, plan.plane_ptr, dims,
+                              plan.nslots, plan.schedule[:4 + len(plan.term_table)])
+    with pytest.raises(TypeError):
+        cuda.stencil_assemble(Gw, mass, plan.term_table, plan.plane_ptr, dims,
+                              plan.nslots, plan.schedule.long())
+    assert tst.assemble_W(plan, Gw, mass).shape == (27, 3, 3, plan.npad)
+
+
 def test_stencil_wrappers_check_their_inputs(card):
     from mixedfem_tpu_torch.ops import stencil as tst
 
@@ -412,7 +485,8 @@ def test_stencil_wrappers_check_their_inputs(card):
     with pytest.raises(ValueError):
         cuda.stencil_assemble(torch.zeros(len(T) - 1, 6, 4, 3, device=card),
                               torch.zeros(len(T) - 1, 4, 4, device=card),
-                              plan.term_table, plan.plane_ptr, dims, plan.nslots)
+                              plan.term_table, plan.plane_ptr, dims, plan.nslots,
+                              plan.schedule)
 
 
 def _grid_step_setup(cells, dtype, device, coarse=True):

@@ -266,7 +266,8 @@ def test_launchers_take_cuda_tensors_only():
     with pytest.raises(ValueError, match="CUDA tensors"):
         cuda.stencil_assemble(f(5, 6, 4, 3), f(5, 4, 4),
                               torch.zeros(160, 8, dtype=i32),
-                              torch.zeros(28, dtype=i32), (2, 2, 2), 5)
+                              torch.zeros(28, dtype=i32), (2, 2, 2), 5,
+                              torch.zeros(200, dtype=i32))
     plan = assembly.build_incidence_plan(T.numpy(), 5, "cpu")
     assembly.segment_sum(plan, f(2, 4, 3))
     smallops.contract_G_Gw(f(2, 6, 3, 3), f(2, 4, 3), f(2, 6, 6), f(2))

@@ -1,7 +1,8 @@
 """Parity of mixedfem_tpu_torch's small per-element ops with mixedfem_tpu's
 on the same numpy inputs, in float64 on the CPU: sym-vec packing, Jacobi
 eigendecomposition, polar / ds/dF (inverted and near-degenerate F included),
-the PSD fix and the six S-space materials.
+the PSD fix and the six S-space materials (their densities also against
+the JAX row body's hand copy, ops/rows.py:psi_rows).
 
 Tolerances: both sides run the same fixed-sweep algorithms in f64, so they
 agree to rounding (1e-10 relative, with an absolute floor where a value
@@ -16,6 +17,7 @@ import torch
 from mixedfem_tpu.materials import models as jmat
 from mixedfem_tpu.ops import psd as jpsd
 from mixedfem_tpu.ops import rotation as jrot
+from mixedfem_tpu.ops import rows as jrows
 from mixedfem_tpu.ops import sym as jsym
 from mixedfem_tpu_torch.materials import models as tmat
 from mixedfem_tpu_torch.ops import psd as tpsd
@@ -144,6 +146,13 @@ def test_material_s_space(name):
         got = getattr(tmat, fn)(*ta, models)
         scale = float(jnp.max(jnp.abs(ref)))
         close(got, ref, rtol=1e-10, atol=1e-12 * scale)
+    # the JAX row body's hand copy of the densities, which the port's
+    # lattice merit stands in for: relative on the regular rows, and the
+    # absolute floor above on the 4 degenerate rows (det near or below 0)
+    got = tmat.psi_s_all(*ta, models)
+    ref = jrows.psi_rows(tuple(ja[0].T), ja[1], ja[2], ja[3], models)
+    close(got[:-4], ref[:-4], rtol=1e-10)
+    close(got, ref, rtol=1e-10, atol=1e-12 * float(jnp.max(jnp.abs(ref))))
 
 
 def test_material_mixed_models():

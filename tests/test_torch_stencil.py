@@ -153,6 +153,55 @@ def test_convert_stencil_plan(small):
         assert torch.equal(getattr(got, f), getattr(tp, f)), f
 
 
+@pytest.mark.parametrize("cells,per_job", [((3, 2, 2), 32), ((1, 1, 1), 16)])
+def test_k6_schedule(cells, per_job):
+    """K6's host schedule: at every vertex of the padded lattice, each plane
+    the terms use is one record in one job of the vertex's parity, and its
+    terms, where their cell exists, are the plan's terms of that plane and
+    cell parity in the plan's order; the planes no term uses have no record.
+    On the 5-tet split the 5 jobs of a pair of vertices hold as many terms
+    each: 32, or 16 on a single cell, whose plan has terms of parity 0
+    only."""
+    V, T = generators.box_tet_mesh(*cells)
+    dims = tuple(c + 1 for c in cells)
+    plan, _ = tst.build_stencil_plan(T, len(V), dims, device="cpu")
+    s = plan.schedule.numpy()
+    J0, J = s[0], s[0] + s[1]
+    job_ptr = s[4:5 + J]
+    recs = s[5 + J:5 + J + 3 * s[2]].reshape(-1, 3)
+    ents = s[5 + J + 3 * s[2]:]
+    assert len(ents) == s[3]
+    rows = plan.term_table.numpy()
+    jobs = [[tuple(recs[r]) for r in range(job_ptr[j], job_ptr[j + 1])]
+            for j in range(J)]
+    assert (J0, J) == (4, 5)
+    assert all(sum(e - b for _, b, e in job) == per_job for job in jobs)
+    NI, NJ, NK = dims
+    by_plane = {o: [t for t in plan.terms if t[5] == o] for o in range(27)}
+
+    def cell_ok(i, j, k, ca):
+        c = (i - 1 - ca[0], j - 1 - ca[1], k - 1 - ca[2])
+        inside = all(0 <= x < n - 1 for x, n in zip(c, dims))
+        return inside, sum(c) % 2
+
+    for i, j, k in np.ndindex(NI + 2, NJ + 2, NK + 2):
+        q = (i + j + k) % 2
+        mine = [rec for job in (jobs[:J0] if q == 0 else jobs[J0:])
+                for rec in job]
+        planes = [o for o, _, _ in mine]
+        assert sorted(planes) == list(plan.used)
+        for o, b, e in mine:
+            got = []
+            for r in ents[b:e]:
+                t, a, bb, p, ca = (rows[r, 0], rows[r, 1], rows[r, 2],
+                                   rows[r, 3], tuple(rows[r, 4:7]))
+                if cell_ok(i, j, k, ca)[0]:
+                    got.append((p, t, a, bb, ca))
+            want = [(p, t, a, bb, ca) for (p, t, a, bb, ca, _o) in by_plane[o]
+                    if cell_ok(i, j, k, ca) == (True, p)]
+            assert got == want, ((i, j, k), o)
+
+
 def test_assemble_W_and_diag_blocks(small, coeffs):
     j, t = coeffs
     jm, tm, jp, tp = small["jm"], small["tm"], small["jplan"], small["tplan"]
