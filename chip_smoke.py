@@ -27,7 +27,11 @@ failure:
    (stencil_assemble) are held to theirs on the bench's 100k-tet box grid
    of phase 8 in both types and timed in both; K5 cold (W copies larger
    than L2, as every other kernel is timed) and hot (the same W, fresh x,
-   as the CG loop reads it).
+   as the CG loop reads it). K2 is also held to its plain version and
+   timed at the contact shapes of phase 11's scene: the frame plan of its
+   first candidate set at m=3 (contact rhs and matvec) and m=9 (contact
+   diagonal blocks), and the coarse contact pair plan of its first
+   refresh (the frames active at the start) at m=36.
 4. main path: the bench's 100k-tet beam (bench.py:build(40, 25, 20),
    banded element order, x=0 face pinned, gravity; Stable-Neo-Hookean,
    BDF1, h=0.02, 5 Newton iterations, itr_tol 1e-4, two-level coarse space
@@ -58,17 +62,37 @@ failure:
    through newton_step with the StencilPlan (the lattice body: K3, K6,
    K5, K2): one warm-up step and three timed steps, counters set to 0
    just before and read just after; then one float64 step of the same
-   beam, whose CG counts stand beside the float32 ones.
+   beam.
 9. grid trajectory: a 1500-tet box grid, 3 float64 steps of 3 Newton
    iterations with a grid coarse space, on the card and on the CPU:
    positions agree to 1e-9 of scale, CG and Newton counts are equal.
-10. one JSON line of kernel results, then the device line last.
+10. grid float64 step: one float64 step of phase 8's 100k-tet grid, whose
+   CG counts stand beside the float32 ones.
+11. contact scene: a slab box_tet_mesh(60, 4, 60) over (2.0, 0.1, 2.0)
+   held at its far x end by a hangends BC, and on it a free
+   box_tet_mesh(16, 16, 16) over (0.5, 0.5, 0.5) whose bottom lies half
+   of dhat above the slab (92,480 tets, 23,518 vertices), as .mesh files
+   and a scene JSON that omits mixed_variables, so the loader's default
+   adds mixed-collision: SNH (E=1e6, nu=0.4, rho=1000), gravity, BDF1,
+   dt 0.01, CCD on, dhat 1e-2, kappa 1e5, 5 Newton iterations, pcg with
+   the two-level coarse space; loaded on the card in float32 and stepped
+   through Simulation.step (broadphase, ACCD, the retry): one warm-up
+   step and three timed steps, counters set to 0 just before and read
+   just after. It prints ms per step and per Newton iteration, CG per
+   Newton, candidate and active frame counts, retries, the broadphase's
+   host ms per step and the least mixed distance, which must be > 0.
+12. contact trajectory: the drop scene of tests/test_collision.py (a
+   pinned slab and a box 2 dhat above it, dhat 3e-2) written as a scene,
+   3 float64 steps of 3 Newton iterations on the card and on the CPU:
+   positions agree to 1e-9 of scale; Newton counts, CG counts and active
+   frames per iteration are equal.
+13. one JSON line of kernel results, then the device line last.
 
 --profile DIR additionally traces one more step of each main path with
 torch.profiler, logs the device time of each hand kernel in it, and writes
 the per-kernel tables to DIR/profile_step.txt (phase 4),
-DIR/profile_scene_step.txt (phase 6) and DIR/profile_grid_step.txt
-(phase 8).
+DIR/profile_scene_step.txt (phase 6), DIR/profile_grid_step.txt
+(phase 8) and DIR/profile_contact_step.txt (phase 11).
 """
 
 from __future__ import annotations
@@ -746,6 +770,205 @@ def scene_trajectory(d):
             raise AssertionError("CG or Newton counts differ")
 
 
+# ---------------------------------------------------------------------------
+# phases 11 and 12: the contact scene
+# ---------------------------------------------------------------------------
+
+CONTACT_DHAT = 1e-2
+SNH_04 = {"energy": "Stable-Neohookean", "youngs_modulus": 1e6,
+          "poissons_ratio": 0.4, "density": 1000.0}
+
+
+def write_contact_scene(d):
+    """Phase 11's slab and box as slab.mesh, box.mesh and a scene JSON
+    without mixed_variables in directory `d`."""
+    from mixedfem_tpu_torch.io import mesh_io
+    from mixedfem_tpu_torch.mesh import generators
+
+    Vs, Ts = generators.box_tet_mesh(60, 4, 60, size=(2.0, 0.1, 2.0))
+    Vb, Tb = generators.box_tet_mesh(16, 16, 16, size=(0.5, 0.5, 0.5))
+    mesh_io.write_mesh(os.path.join(d, "slab.mesh"), Vs, Ts)
+    mesh_io.write_mesh(os.path.join(d, "box.mesh"), Vb, Tb)
+    scene = {
+        "time_integrator": "BDF1", "dt": 0.01, "enable_ccd": True,
+        "dhat": CONTACT_DHAT, "kappa": 1e5, "max_newton_iterations": 5,
+        "material_models": [SNH_04],
+        "objects": [
+            {"path": "slab.mesh", "normalize": False,
+             "boundary_condition": {"type": "hangends", "axis": 0}},
+            {"path": "box.mesh", "normalize": False,
+             "offset": [0.75, 0.1 + 0.5 * CONTACT_DHAT, 0.75]},
+        ],
+    }
+    path = os.path.join(d, "contact.json")
+    with open(path, "w") as f:
+        json.dump(scene, f)
+    return path
+
+
+def write_drop_scene(d, dhat=3e-2):
+    """The drop scene of tests/test_collision.py (drop_scene): a slab
+    box_tet_mesh(2, 1, 2) over (1, 0.25, 1), pinned whole (hangends along
+    y with ratio 2), and a box_tet_mesh(2, 1, 2) over (0.4, 0.2, 0.4) at
+    (0.3, 0.27, 0.3); float64 contact at `dhat`, 3 Newton iterations."""
+    from mixedfem_tpu_torch.io import mesh_io
+    from mixedfem_tpu_torch.mesh import generators
+
+    V1, T1 = generators.box_tet_mesh(2, 1, 2, size=(1.0, 0.25, 1.0))
+    V2, T2 = generators.box_tet_mesh(2, 1, 2, size=(0.4, 0.2, 0.4))
+    mesh_io.write_mesh(os.path.join(d, "slab.mesh"), V1, T1)
+    mesh_io.write_mesh(os.path.join(d, "box.mesh"), V2, T2)
+    scene = {
+        "dt": 0.01, "enable_ccd": True, "dhat": dhat, "kappa": 1e5,
+        "max_newton_iterations": 3, "iterative_solver_tolerance": 1e-8,
+        "material_models": [SNH_04],
+        "objects": [
+            {"path": "slab.mesh", "normalize": False, "boundary_condition":
+             {"type": "hangends", "axis": 1, "ratio": 2.0}},
+            {"path": "box.mesh", "normalize": False,
+             "offset": [0.3, 0.27, 0.3]},
+        ],
+    }
+    path = os.path.join(d, "drop.json")
+    with open(path, "w") as f:
+        json.dump(scene, f)
+    return path
+
+
+def first_contact_pairs(sim):
+    """The coarse contact pair plan of the scene's first coarse refresh:
+    the frames active at the initial positions (optimizer/newton.py)."""
+    from mixedfem_tpu_torch.solvers import coarse as coarsemod
+    from mixedfem_tpu_torch.variables import mixed_collision as mc
+
+    cf, x, c = sim.state.contact, sim.state.x, sim.config
+    z = x.new_zeros((cf.nreal,))
+    cc0 = mc.update(sim.mesh, cf, x, z, z, z, c.dhat, c.kappa)
+    act = torch.nonzero(cc0.active).squeeze(1)
+    return coarsemod.contact_pairs(sim.coarse, cf.frames[act].cpu().numpy(),
+                                   x.device)
+
+
+def contact_k2_cases(cf, pairs):
+    """K2 over the contact frame plan of candidate set `cf` (m=3, 9) and
+    the coarse contact pair plan `pairs` (m=36), on seeded rows of those
+    shapes."""
+    from mixedfem_tpu_torch.ops import assembly
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+
+    def case(m, label, plan):
+        rows = torch.randn((plan.nrows, m), generator=g, device="cuda")
+        seg = torch.empty(plan.nrows, dtype=torch.int64, device="cuda")
+        seg[plan.slots.long()] = plan.seg
+        base = torch.zeros((plan.nseg, m), device="cuda")
+        ins = (plan.row_ptr, plan.slots, rows)
+        return dict(
+            name=f"segment_sum_m{m}", label=label,
+            replaces="mixedfem_tpu/ops/brick.py:442",
+            kernel=k2, plain=assembly.segment_sum_plain,
+            library=lambda pl, r: torch.index_add(base, 0, seg, r),
+            make=lambda: (clone(plan), rows.clone()),
+            bytes=nbytes(*ins) + plan.nseg * m * rows.element_size(),
+            flops=rows.numel(), npieces=plan.npieces,
+        )
+
+    return [case(3, "contact frames", cf.plan),
+            case(9, "contact frames", cf.plan),
+            case(36, "contact pairs", pairs.plan)]
+
+
+def contact_main_path(sim):
+    """One warm-up Simulation.step and three timed ones of the contact
+    scene; the broadphase's host time is read around each candidate
+    build. Launch counts over the four steps."""
+    from mixedfem_tpu_torch import cuda
+
+    build = sim._update_contact_candidates
+    builds = []
+
+    def timed_build(*a, **k):
+        t0 = time.perf_counter()
+        out = build(*a, **k)
+        builds.append((len(times), time.perf_counter() - t0))
+        return out
+
+    sim._update_contact_candidates = timed_build
+    times, states, cands = [], [], []
+    cuda.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    for k in range(4):
+        t0 = time.perf_counter()
+        sim.step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        states.append(sim.state)
+        cands.append(sim.state.contact.nreal)
+    launches = dict(cuda.LAUNCHES)
+    del sim._update_contact_candidates
+    bp_ms = [1e3 * sum(t for i, t in builds if i == k) for k in range(4)]
+    for k, (st, ms) in enumerate(zip(states, times)):
+        it = st.stats.iterations
+        log(f"  {'warm-up step' if k == 0 else f'step {k}'}: {ms:.3f} ms "
+            f"(broadphase {bp_ms[k]:.3f} ms), candidates {cands[k]}, active "
+            f"frames {st.stats.active_frames[:it].tolist()}, min mixed "
+            f"distance {st.stats.min_distance[:it].min().item():.6e}, "
+            f"{describe(st)}")
+        check_energies(st)
+    timed = states[1:]
+    newton_its = sum(st.stats.iterations for st in timed)
+    cg = sum(sum(st.stats.solver_iters[:st.stats.iterations].tolist())
+             for st in timed)
+    step_ms = sum(times[1:]) / 3
+    dmin = min(st.stats.min_distance[:st.stats.iterations].min().item()
+               for st in states)
+    active = max(int(st.stats.active_frames[:st.stats.iterations].max())
+                 for st in states)
+    log(f"  ms_per_step {step_ms:.3f} (3 timed steps), ms per Newton "
+        f"iteration {sum(times[1:]) / newton_its:.3f}, CG iterations per "
+        f"Newton {cg / newton_its:.2f}, broadphase ms per step "
+        f"{sum(bp_ms[1:]) / 3:.3f}, retries {sim.retries}, min mixed "
+        f"distance {dmin:.6e}, most active frames {active}, launches over "
+        f"4 steps {launches}")
+    x = sim.state.x
+    if x.shape != (sim.mesh.nv, 3) or not torch.isfinite(x).all():
+        raise AssertionError("the contact step produced non-finite positions")
+    if not (active > 0 and 0 < dmin < math.inf):
+        raise AssertionError(f"no feasible contact: {active} active frames, "
+                             f"min mixed distance {dmin}")
+    return step_ms, launches
+
+
+def contact_trajectory(d):
+    """3 float64 steps of the drop scene on the card and on the CPU (the
+    same loaded objects moved there)."""
+    from mixedfem_tpu_torch.device import to_device
+    from mixedfem_tpu_torch.io.scene import load_scene
+
+    card = load_scene(write_drop_scene(d), dim=3, dtype="float64",
+                      device="cuda")
+    cpu = to_device(card, "cpu")
+    log(f"  E {card.mesh.nelem} nv {card.mesh.nv} variables "
+        f"{card.config.mixed_variables}")
+    for k in range(3):
+        g, c = card.step(), cpu.step()
+        scale = c.x.abs().max().item()
+        err = (g.x.cpu() - c.x).abs().max().item()
+        it = c.stats.iterations
+        counts = {dev: (st.stats.iterations, st.stats.solver_iters.tolist(),
+                        st.stats.active_frames.tolist())
+                  for dev, st in (("card", g), ("cpu", c))}
+        log(f"  step {k}: max |x_card - x_cpu| {err:.3e} (scale {scale:.3f}), "
+            f"candidates {c.contact.nreal}, (newton, CG, active) card "
+            f"{counts['card']} cpu {counts['cpu']}, alpha {c.stats.alpha.tolist()}")
+        if not err <= 1e-9 * scale:
+            raise AssertionError("the card's contact trajectory leaves the CPU's")
+        if counts["card"] != counts["cpu"]:
+            raise AssertionError("Newton, CG or active-frame counts differ")
+        if not int(c.stats.active_frames[:it].max()) > 0:
+            raise AssertionError("the drop scene has no active contact")
+
+
 def profile_step(step, out_dir, name, untraced_ms):
     """Trace one more step (`step()` runs it) with torch.profiler: device
     busy time against the step's wall time, host and device time per span,
@@ -769,7 +992,7 @@ def profile_step(step, out_dir, name, untraced_ms):
     spans = [
         f"  span {a.key:22s} {str(a.device_type):16s} calls {a.count:4d} "
         f"host {a.cpu_time_total / 1e3:9.3f} ms device {a.device_time_total / 1e3:9.3f} ms"
-        for a in avgs if a.key.startswith("newton.")
+        for a in avgs if a.key.startswith(("newton.", "scene."))
     ]
     # the hand kernels' device time, each instantiation on a line of its own
     hand = []
@@ -886,6 +1109,29 @@ def main() -> int:
     st32_t = time_kernels(st32, torch.float32)
     st64_t = {t["name"]: t for t in time_kernels(st64, torch.float64)}
     del st32, st64
+    # K2 at the contact shapes: phase 11's scene and its first candidates
+    ctmp = tempfile.TemporaryDirectory()
+    t0 = time.perf_counter()
+    csim = load_scene(write_contact_scene(ctmp.name), dim=3, dtype="float32",
+                      device="cuda")
+    t1 = time.perf_counter()
+    csim._update_contact_candidates()
+    cf = csim.state.contact
+    log(f"  contact scene loaded in {t1 - t0:.1f} s: E {csim.mesh.nelem} nv "
+        f"{csim.mesh.nv} W {csim.matvec_plan.W}, aggregates "
+        f"{csim.coarse.naggr}, variables {csim.config.mixed_variables}; "
+        f"candidates {cf.nreal} (capacity {cf.frames.shape[0]}) in "
+        f"{(time.perf_counter() - t1) * 1e3:.1f} ms")
+    pairs = first_contact_pairs(csim)
+    for name, pl in (("contact frame plan", cf.plan),
+                     ("contact pair plan", pairs.plan)):
+        log("  " + plan_line(name, pl))
+    k2c = contact_k2_cases(cf, pairs)
+    errs.update(check_kernels(k2c, torch.float32, 1e-5))
+    check_kernels(k2c, torch.float64, 1e-12, cast=f64)
+    k2c_t = time_kernels(k2c, torch.float32)
+    k2c_pieces = {case_key(c): c["npieces"] for c in k2c}
+    del k2c, cf, pairs
 
     log("phase 4: main path, 100k tets, float32")
     final, step_ms, launches = main_path(mesh, config, state, cs)
@@ -929,29 +1175,53 @@ def main() -> int:
         profile_step(lambda: run_steps(gmesh, gconfig, gfinal, gcs, 1, gplan),
                      args.profile, "grid_step", grid_ms)
     del gmesh, gstate, gcs, gplan, gfinal
-    grid_float64_step()
 
     log("phase 9: float64 grid trajectory, card against CPU")
     grid_trajectory()
 
-    log("phase 10: results")
+    log("phase 10: one float64 grid step, 100k tets")
+    grid_float64_step()
+
+    log("phase 11: contact scene, 92k tets, float32 (load_scene without "
+        "mixed_variables, Simulation.step)")
+    contact_ms, contact_launches = contact_main_path(csim)
+    need = ("element_apply", "banded_sum_m3", "banded_sum_m9",
+            "segment_sum_m3", "segment_sum_m9", "segment_sum_m6",
+            "segment_sum_m36", "contract_G_Gw")
+    missing = [k for k in need if contact_launches.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the contact path: {missing}")
+    if args.profile:
+        profile_step(csim.step, args.profile, "contact_step", contact_ms)
+    del csim
+    ctmp.cleanup()
+
+    log("phase 12: float64 contact trajectory, card against CPU")
+    with tempfile.TemporaryDirectory() as d:
+        contact_trajectory(d)
+
+    log("phase 13: results")
     replaces = {c["name"]: c["replaces"] for c in cases32 + k4_scene}
     replaces.update({t["name"]: "mixedfem_tpu/ops/stencil.py:" + (
         "378" if t["name"] == "stencil_apply" else "187") for t in st32_t})
     k4_other = {t["name"]: t for t in k4_beam_t}
+    contact_keys = {t["key"] for t in k2c_t}
     kernels = []
-    for t in timings + k4_scene_t + st32_t:
+    for t in timings + k4_scene_t + st32_t + k2c_t:
         name = t["name"]
         by_path = {"beam_step": launches.get(name, 0),
                    "scene_step": scene_launches.get(name, 0),
-                   "grid_step": grid_launches.get(name, 0)}
+                   "grid_step": grid_launches.get(name, 0),
+                   "contact_step": contact_launches.get(name, 0)}
         entry = dict(
             name=name, route="cuda",
             source="mixedfem_tpu_torch/csrc/kernels.cu",
             replaces=replaces[name],
             # the path that carries the kernel: K4 the scene's, K5 and K6
-            # the grid's, K1-K3 the bench beam's (phase 4)
-            launches=by_path["scene_step" if name.startswith("banded")
+            # the grid's, K2 at the contact shapes the contact scene's,
+            # K1-K3 the bench beam's (phase 4)
+            launches=by_path["contact_step" if t["key"] in contact_keys
+                             else "scene_step" if name.startswith("banded")
                              else "grid_step" if name.startswith("stencil")
                              else "beam_step"],
             launches_by_path=by_path, max_abs_err=errs[t["key"]],
@@ -964,7 +1234,7 @@ def main() -> int:
             entry["f64"] = {k: st64_t[name][k] for k in (
                 "ms", "hot_ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms") if st64_t[name][k] is not None}
-        if name == "segment_sum_m36":
+        if t["key"] == "segment_sum_m36":
             entry["piece_rows_us"] = sweep
         if name == "contract_G_Gw":
             entry["tile_us"] = k3_tiles["float32"]
@@ -972,7 +1242,10 @@ def main() -> int:
             entry["f64"] = {k: k3_64_t[k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
         c = next((c for c in cases32 if c["name"] == name), {})
-        if "npieces" in c:
+        if t["key"] in contact_keys:
+            entry["shapes"] = t["key"]
+            entry["npieces"] = k2c_pieces[t["key"]]
+        elif "npieces" in c:
             entry["npieces"] = c["npieces"]
         if name in k4_other:
             o = k4_other[name]
@@ -983,7 +1256,7 @@ def main() -> int:
                 "k2_same_rows_ms")}
         kernels.append(entry)
     log(f"{card}, ms_per_step {step_ms:.3f}, scene ms_per_step {scene_ms:.3f}, "
-        f"grid ms_per_step {grid_ms:.3f}")
+        f"grid ms_per_step {grid_ms:.3f}, contact ms_per_step {contact_ms:.3f}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

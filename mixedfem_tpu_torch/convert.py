@@ -1,6 +1,6 @@
-"""Carry the JAX package's mesh, state, coarse space (geometric or grid),
-boundary conditions, press controllers, banded plan and stencil plan across
-to the port.
+"""Carry the JAX package's mesh, state (contact frames included),
+coarse space (geometric or grid), boundary conditions, press controllers,
+banded plan and stencil plan across to the port.
 
 The JAX objects are handed over as dicts of numpy arrays (one entry per
 dataclass field, nested dataclasses as nested dicts, static fields such as
@@ -26,6 +26,7 @@ from mixedfem_tpu_torch.ops.stencil import StencilPlan, plan_from_terms
 from mixedfem_tpu_torch.optimizer.newton import SimState, StepStats
 from mixedfem_tpu_torch.solvers.coarse import CoarseSpace, coarse_from_arrays
 from mixedfem_tpu_torch.solvers.operator import BandedPlan
+from mixedfem_tpu_torch.variables.mixed_collision import contact_frames
 
 _MESH_FIELDS = (
     "V0", "T", "dphidX", "vols", "mass_coeff", "mass_lumped", "mass_diag",
@@ -72,8 +73,7 @@ def state_from_numpy(d: Mapping, dtype, device) -> SimState:
     st, bdf = d["stats"], d["bdf"]
     if np.asarray(d.get("R", np.zeros((0, 3, 3)))).shape[0]:
         raise NotImplementedError("rotation_warm_start state")
-    if "contact" in d and np.asarray(d["contact"]["frames"]).shape[0]:
-        raise NotImplementedError("contact frames")
+    cf = d["contact"]
     return SimState(
         x=f(d["x"]),
         s=f(d["s"]),
@@ -83,6 +83,9 @@ def state_from_numpy(d: Mapping, dtype, device) -> SimState:
             order=int(bdf["order"]), h=float(bdf["h"]),
         ),
         bc_states=tuple(bc_state_from_numpy(b) for b in d["bc_states"]),
+        # the JAX ContactFrames, with the frame plan built from them
+        contact=contact_frames(cf["frames"], cf["ftype"], cf["fmask"],
+                               np.asarray(d["x"]).shape[0], dtype, device),
         press_states=tuple(
             press_state_from_numpy(p) for p in d["press_states"]
         ),
@@ -96,6 +99,11 @@ def state_from_numpy(d: Mapping, dtype, device) -> SimState:
                 np.asarray(st["solver_iters"], np.int32), device=device
             ),
             iterations=int(np.asarray(st["iterations"])),
+            # not recorded by the JAX package
+            active_frames=torch.zeros(len(st["energy"]), dtype=torch.int32,
+                                      device=device),
+            min_distance=torch.full((len(st["energy"]),), float("inf"),
+                                    dtype=dtype, device=device),
         ),
         precond=f(d["precond"]),
     )

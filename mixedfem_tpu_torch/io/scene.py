@@ -1,5 +1,5 @@
 """Scene loading: the reference's JSON scene vocabulary -> Simulation (port
-of mixedfem_tpu/io/scene.py, 3D tets without contact).
+of mixedfem_tpu/io/scene.py, 3D tets).
 
 The JSON schema is the JAX package's: dt, body_force, time_integrator,
 linear_solver, max_newton_iterations, max_linesearch_iterations,
@@ -7,16 +7,24 @@ max_iterative_solver_iters, iterative_solver_tolerance,
 objects[{path, offset, transformation, initial_velocity, normalize,
 material_index, material_ids, boundary_condition, external_force,
 skinning_mesh}], material_models[{youngs_modulus, poissons_ratio, density,
-energy}], mixed_variables, variables, initial_state{x_path, v_path}.
-Multi-object scenes are concatenated into one global mesh.
+energy}], mixed_variables, variables, initial_state{x_path, v_path},
+enable_ccd, dhat, kappa. Multi-object scenes are concatenated into one
+global mesh. A scene that omits mixed_variables gets mixed-stretch and
+mixed-collision (IPC contact), as in the JAX package.
 
 On the card the loader mirrors the JAX package's accelerator choices:
 elements in banded order (sorted by min vertex id) and a banded plan for
 scenes of 2000 tets or more, so every assembly and CG matvec goes through
 kernel K4; a two-level coarse space (target 48) for such scenes with the
 'pcg' solver. On the CPU the scene keeps its natural element order.
-Contact, 2D scenes and solvers other than pcg / pcg-block-jacobi raise
+2D scenes and solvers other than pcg / pcg-block-jacobi raise
 NotImplementedError while the scene loads.
+
+With contact, Simulation.step runs the host broadphase once per step
+(collision/broadphase.py, under the profiler span `scene.broadphase`) with
+a margin that covers the expected motion, and re-runs the step from the
+saved pre-step state with a wider margin when the step moved a vertex
+further than that.
 """
 
 from __future__ import annotations
@@ -28,12 +36,14 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from mixedfem_tpu_torch.bc.boundary_conditions import (
     BCConfig, BCSpec, BCState, boundary_groups, build_bc,
 )
 from mixedfem_tpu_torch.bc.external_force import ExtConfig, build_external_force
 from mixedfem_tpu_torch.bc.press import PressSpec, press_init
+from mixedfem_tpu_torch.collision import broadphase as bp
 from mixedfem_tpu_torch.config import MaterialConfig, SimConfig
 from mixedfem_tpu_torch.device import resolve_device
 from mixedfem_tpu_torch.io import mesh_io
@@ -46,6 +56,7 @@ from mixedfem_tpu_torch.solvers import coarse as coarsemod
 from mixedfem_tpu_torch.solvers import operator as opmod
 from mixedfem_tpu_torch.solvers.factory import resolve_solver
 from mixedfem_tpu_torch.utils.skinning import apply_skinning, embed_in_tets
+from mixedfem_tpu_torch.variables.mixed_collision import contact_frames
 
 # scenes of this many tets or more get the banded plan (on the card) and
 # the two-level coarse space, as in the JAX package
@@ -68,6 +79,7 @@ class Simulation:
     press_specs: Tuple = ()
     skinning: Tuple = ()  # per object (V_render, F_render, tet_id, bary)
     matvec_plan: Optional[opmod.BandedPlan] = None
+    retries: int = 0  # contact steps re-run with a wider margin
 
     def skinned_surfaces(self):
         """The attached render meshes, advected with the current positions."""
@@ -83,8 +95,55 @@ class Simulation:
         )
 
     def step(self) -> SimState:
-        self.state = self._one_step()
+        c = self.config
+        if not ("mixed-collision" in c.mixed_variables
+                or "collision" in c.variables or "friction" in c.variables):
+            self.state = self._one_step()
+            return self.state
+
+        # The candidate set is fixed within a step and built with a margin
+        # that covers the expected motion. If the step moved a vertex
+        # further than that budget, a contact may have been missed: re-run
+        # the whole step from the pre-step state with a margin that covers
+        # the observed motion. newton_step writes into no tensor of the
+        # state it is given, so pre_state is intact for the retry.
+        pre_state = self.state
+        budget = self._update_contact_candidates()
+        for _attempt in range(4):
+            self.state = self._one_step()
+            moved = float(torch.linalg.vector_norm(
+                self.state.x - pre_state.x, dim=1).amax())
+            if moved <= budget:
+                break
+            self.retries += 1
+            self.state = pre_state
+            budget = self._update_contact_candidates(min_motion=1.5 * moved)
         return self.state
+
+    @record_function("scene.broadphase")
+    def _update_contact_candidates(self, min_motion: float = 0.0) -> float:
+        """Host broadphase once per step with margin 1.1 dhat plus twice the
+        expected motion; returns the per-vertex motion budget that margin
+        covers."""
+        V = self.state.x.cpu().numpy()
+        v = self.state.bdf.v_hist[0].cpu().numpy()
+        motion = np.linalg.norm(v, axis=1).max() * self.config.h if len(v) else 0.0
+        # always budget at least one dhat of unpredicted motion (it covers
+        # acceleration from rest, such as gravity's onset)
+        motion = max(motion, min_motion, self.config.dhat)
+        margin = 1.1 * self.config.dhat + 2.0 * motion
+
+        F_srf = self.mesh.F_srf.cpu().numpy()
+        frames, types = bp.candidates_3d(
+            V, F_srf, self.mesh.E_srf.cpu().numpy(),
+            np.unique(F_srf.reshape(-1)), margin)
+        cap = (bp.capacity(len(frames), self.config.max_contact_frames)
+               if len(frames) else 0)
+        f, t, m = bp.pad_candidates(frames, types, cap)
+        x = self.state.x
+        self.state = dataclasses.replace(self.state, contact=contact_frames(
+            f, t, m, self.mesh.nv, x.dtype, x.device))
+        return motion
 
     def attach_precond_cache(self):
         """Size the cached coarse inverse when coarse_refresh_every > 1."""
@@ -129,13 +188,6 @@ def _resolve_path(path: str, scene_dir: str) -> str:
 def _check_scene(config: SimConfig, dim: int) -> None:
     if dim != 3:
         raise NotImplementedError("2D scenes (dim=2)")
-    contact = [n for n in ("mixed-collision",) if n in config.mixed_variables]
-    contact += [n for n in ("collision", "friction") if n in config.variables]
-    if contact:
-        raise NotImplementedError(
-            f"contact ({', '.join(contact)}); give mixed_variables "
-            '["mixed-stretch"] for a scene without contact'
-        )
     check_supported(config)
 
 

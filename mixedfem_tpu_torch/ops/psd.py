@@ -27,3 +27,11 @@ def psd_fix_sqrt(H: torch.Tensor, tol: float = 1e-8, sweeps: int | None = None):
     Hi = sym_reconstruct(V, 1.0 / w)
     Hs = sym_reconstruct(V, torch.sqrt(w))
     return Hf, Hi, Hs, w.amax(dim=-1)
+
+
+def psd_project(H: torch.Tensor, tol: float = 1e-8, sweeps: int | None = None):
+    """V max(w, tol) V^T of (..., n, n) symmetric blocks (the H_fixed of
+    the JAX package's psd_fix)."""
+    H = 0.5 * (H + H.transpose(-1, -2))
+    w, V = jacobi_eigh(H, sweeps=sweeps or _default_sweeps(H.dtype))
+    return sym_reconstruct(V, torch.clamp(w, min=tol))

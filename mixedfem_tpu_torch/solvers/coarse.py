@@ -201,13 +201,41 @@ def _vert_modes(cs: CoarseSpace, free_mask: torch.Tensor, dim: int = 3):
     return B[:, :dim, :] * free_mask[:, None, None]
 
 
+@dataclasses.dataclass
+class ContactPairs:
+    """The aggregate pairs that a set of contact frames' coarse blocks land
+    on, and the plan that sums the (frame, k, l) blocks per pair."""
+
+    rows: torch.Tensor  # (npairs,) int64 aggregate row of each pair
+    cols: torch.Tensor  # (npairs,) int64 aggregate col
+    plan: assembly.IncidencePlan  # pair <- (frame, k, l)
+
+
+def contact_pairs(cs: CoarseSpace, frames: np.ndarray, device) -> ContactPairs:
+    """Pair plan of contact frames `frames` (n, 4) (host vertex ids): frame
+    corners k, l join aggregates (agg_k, agg_l), which may lie on two
+    objects and so outside the element pair plan. Built on the host."""
+    a = cs.agg_id.cpu().numpy()[np.asarray(frames, np.int64)]    # (n, 4)
+    flat = a[:, :, None] * cs.naggr + a[:, None, :]               # (n, 4, 4)
+    uniq, pid = np.unique(flat.reshape(-1), return_inverse=True)
+    return ContactPairs(
+        rows=torch.as_tensor(uniq // cs.naggr, device=device),
+        cols=torch.as_tensor(uniq % cs.naggr, device=device),
+        plan=assembly.build_incidence_plan(pid, len(uniq), device),
+    )
+
+
 def coarse_matrix(
-    mesh: meshmod.MeshData, cs: CoarseSpace, ms_coeffs: Optional[StretchCoeffs]
+    mesh: meshmod.MeshData, cs: CoarseSpace, ms_coeffs: Optional[StretchCoeffs],
+    contact=None,
 ) -> torch.Tensor:
-    """Galerkin A_c = P^T (M + K) P, dense (6 naggr, 6 naggr), with a ridge
-    of 3e-6 ||A_c||_inf against f32 assembly roundoff and rank deficiency.
-    The element blocks are summed per aggregate pair through the pair plan
-    (kernel K2 on the card), in a fixed order."""
+    """Galerkin A_c = P^T (M + K [+ K_contact]) P, dense (6 naggr, 6 naggr),
+    with a ridge of 3e-6 ||A_c||_inf against f32 assembly roundoff and rank
+    deficiency. The element blocks are summed per aggregate pair through the
+    pair plan (kernel K2 on the card), in a fixed order. `contact` is
+    (ContactPairs of m frames, their vertex ids (m, 4), Gx (m, 4, 3), H
+    (m,)): the barrier blocks Gx H Gx^T, summed per aggregate pair through
+    the pair plan (K2) and added once per pair."""
     _no_tf32()
     dt = mesh.vols.dtype
     B = _vert_modes(cs, mesh.free_mask, mesh.dim)
@@ -228,6 +256,14 @@ def coarse_matrix(
         (cs.pair_rows, cs.pair_cols), pair_sums.reshape(npairs, 6, 6),
         accumulate=True,
     )
+    if contact is not None and contact[1].shape[0]:
+        pairs, frames, Gx, Hc = contact
+        Y = torch.einsum("ckr,ckra->cka", Gx, B[frames])
+        blocks_c = torch.einsum("cka,clb,c->cklab", Y, Y, Hc)
+        sums = assembly.segment_sum(pairs.plan,
+                                    blocks_c.reshape(frames.shape[0], 16, 36))
+        Ac.index_put_((pairs.rows, pairs.cols), sums.reshape(-1, 6, 6),
+                      accumulate=True)
     Ac = Ac.permute(0, 2, 1, 3).reshape(ncd, ncd)
     scale = torch.amax(torch.sum(Ac.abs(), dim=1)) + 1e-30
     return Ac + (3e-6 * scale) * torch.eye(ncd, dtype=dt, device=Ac.device)

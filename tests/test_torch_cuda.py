@@ -6,8 +6,11 @@ and float32 to 1e-5 of the output's scale (the kernels sum in another order
 than the plain versions). A short float64 step on the card goes through K1-K3
 and matches the CPU's step; a loaded scene steps through K4 and repeats bit
 for bit; K5 and K6 are held to theirs on box grids up to the bench's 100k
-tets, and a grid step through them repeats bit for bit. This file imports
-neither JAX nor the JAX package, so it also runs where only PyTorch is installed:
+tets, and a grid step through them repeats bit for bit; the contact path's
+frame and pair plans go through K2 as the plain version adds, two float32
+contact runs repeat bit for bit, and a float64 contact trajectory matches
+the CPU's. This file imports neither JAX nor the JAX package, so it also
+runs where only PyTorch is installed:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 
@@ -32,7 +35,7 @@ from mixedfem_tpu_torch.solvers import coarse as tcoarse
 from mixedfem_tpu_torch.solvers import operator as top
 from mixedfem_tpu_torch.variables import mixed_stretch as tms
 
-from torch_parity import beam_arrays
+from torch_parity import beam_arrays, write_contact_scene, write_drop_scene
 
 DT = 0.02
 pytestmark = pytest.mark.cuda
@@ -531,3 +534,79 @@ def test_float32_grid_step_repeats_on_card(card):
     assert torch.equal(runs[0].x, runs[1].x)
     assert torch.equal(runs[0].stats.energy, runs[1].stats.energy)
     assert runs[0].stats.solver_iters.tolist() == runs[1].stats.solver_iters.tolist()
+
+
+# ---------------------------------------------------------------------------
+# contact
+# ---------------------------------------------------------------------------
+
+def _slab_box(tmp_path):
+    """A 5080-tet contact scene (the loader gives it the banded plan and
+    the coarse space), the box half of dhat above the slab."""
+    return write_contact_scene(
+        tmp_path, (20, 2, 20), (6, 6, 6), (1.0, 0.1, 1.0), (0.3, 0.3, 0.3),
+        (0.35, 0.105, 0.35), {"type": "hangends", "axis": 0},
+        dhat=1e-2, max_newton_iterations=3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_contact_plans_match_plain(card, tmp_path, dtype):
+    """K2 over the contact frame plan (m=3, 9) and a coarse contact pair
+    plan (m=36, over all candidates) against the plain version."""
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    sim = load_scene(_slab_box(tmp_path), dim=3, device=card,
+                     dtype=str(dtype).removeprefix("torch."))
+    assert sim.matvec_plan is not None and sim.coarse is not None
+    sim._update_contact_candidates()
+    cf = sim.state.contact
+    assert cf.nreal > 0
+    pairs = tcoarse.contact_pairs(sim.coarse, cf.frames[:cf.nreal].cpu().numpy(),
+                                  card)
+    g = torch.Generator(device=card).manual_seed(0)
+    for plan, m in ((cf.plan, 3), (cf.plan, 9), (pairs.plan, 36)):
+        rows = torch.randn((plan.nrows, m), generator=g, device=card,
+                           dtype=dtype)
+        got = cuda.segment_sum(plan.row_ptr, plan.slots, rows, plan.nseg,
+                               plan.piece_ptr, plan.seg_pieces)
+        ref = assembly.segment_sum_plain(plan, rows)
+        torch.cuda.synchronize()
+        assert (got - ref).abs().max().item() <= tol * ref.abs().max().item()
+
+
+def test_float32_contact_steps_repeat_on_card(card, tmp_path):
+    """Every contact sum runs through an incidence plan, so two float32
+    runs of two contact steps agree bit for bit, with the frame scatters
+    on K2."""
+    path = _slab_box(tmp_path)
+    runs = []
+    for _ in range(2):
+        sim = load_scene(path, dim=3, dtype="float32", device=card)
+        cuda.LAUNCHES.clear()
+        sim.run(2)
+        launches = dict(cuda.LAUNCHES)
+        runs.append((sim.state, launches))
+    (a, la), (b, lb) = runs
+    for key in ("segment_sum_m3", "segment_sum_m9", "segment_sum_m36",
+                "banded_sum_m3", "element_apply"):
+        assert la.get(key, 0) > 0, key
+    assert la == lb
+    assert int(a.stats.active_frames.max()) > 0
+    assert torch.equal(a.x, b.x)
+    assert a.stats.solver_iters.tolist() == b.stats.solver_iters.tolist()
+
+
+def test_contact_trajectory_on_card_matches_cpu(card, tmp_path):
+    """Three float64 steps of the drop scene: the card against the CPU."""
+    from mixedfem_tpu_torch.device import to_device
+
+    g_sim = load_scene(write_drop_scene(tmp_path), dim=3, dtype="float64",
+                       device=card)
+    c_sim = to_device(g_sim, "cpu")
+    for _ in range(3):
+        g, c = g_sim.step(), c_sim.step()
+        np.testing.assert_allclose(g.x.cpu().numpy(), c.x.numpy(), rtol=0,
+                                   atol=1e-9 * c.x.abs().max().item())
+        assert g.stats.iterations == c.stats.iterations
+        assert g.stats.solver_iters.tolist() == c.stats.solver_iters.tolist()
+        assert g.stats.active_frames.tolist() == c.stats.active_frames.tolist()
+    assert int(c.stats.active_frames.max()) > 0

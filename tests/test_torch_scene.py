@@ -31,7 +31,9 @@ from mixedfem_tpu_torch.io.scene import load_scene as tload
 from mixedfem_tpu_torch.mesh import discretization as tdisc
 from mixedfem_tpu_torch.utils import skinning as tskin
 
-from torch_parity import CPU, close, t64, to_numpy
+from torch_parity import (  # noqa: F401 (one_torch_thread is a fixture)
+    CPU, close, one_torch_thread, t64, to_numpy,
+)
 
 STEPS = 3
 
@@ -322,8 +324,6 @@ def test_initial_state_resume(tmp_path):
 
 
 @pytest.mark.parametrize("extra,dim", [
-    ({"mixed_variables": ["mixed-stretch", "mixed-collision"]}, 3),
-    ({"variables": ["friction"]}, 3),
     ({}, 2),
     ({"linear_solver": "eigen-llt"}, 3),
     ({"linear_solver": "subspace-gauss_seidel"}, 3),
@@ -334,13 +334,49 @@ def test_uncovered_scenes_raise(tmp_path, extra, dim):
         tload(path, dim=dim, device="cpu")
 
 
-def test_scene_without_mixed_variables_needs_contact(tmp_path):
-    """The default mixed_variables include mixed-collision (contact)."""
-    path = write_scene(tmp_path)
-    scene = json.loads(open(path).read())
-    del scene["mixed_variables"]
-    with pytest.raises(NotImplementedError, match="contact"):
-        tload(scene, dim=3, device="cpu")
+def _touching(path, drop=()):
+    """Rewrite the scene at `path` with the block 0.005 (half of dhat)
+    below the beam, without the keys `drop`."""
+    with open(path) as f:
+        scene = json.load(f)
+    scene["objects"][1]["offset"] = [0.0, -0.505, 0.0]
+    for k in drop:
+        del scene[k]
+    with open(path, "w") as f:
+        json.dump(scene, f)
+    return path
+
+
+def _step_contact(sim):
+    sim.step()
+    assert sim.state.contact.nreal > 0
+    assert torch.isfinite(sim.state.x).all()
+    return sim.state
+
+
+@pytest.mark.parametrize("extra", [
+    {"mixed_variables": ["mixed-stretch", "mixed-collision"]},
+    {"variables": ["friction"]},
+])
+def test_contact_scenes_step(tmp_path, extra, one_torch_thread):
+    """Scenes with mixed-collision or lagged friction load and step, with
+    candidates between the two objects."""
+    sim = tload(_touching(write_scene(tmp_path, **extra)), dim=3, device="cpu")
+    st = _step_contact(sim)
+    if "mixed_variables" in extra:
+        assert int(st.stats.active_frames[:st.stats.iterations].max()) > 0
+        assert float(st.stats.min_distance[:st.stats.iterations].min()) > 0
+
+
+def test_scene_without_mixed_variables_needs_contact(tmp_path,
+                                                     one_torch_thread):
+    """The default mixed_variables include mixed-collision (contact): such a
+    scene loads and steps with contact."""
+    path = _touching(write_scene(tmp_path), drop=("mixed_variables",))
+    sim = tload(path, dim=3, device="cpu")
+    assert sim.config.mixed_variables == ("mixed-stretch", "mixed-collision")
+    st = _step_contact(sim)
+    assert int(st.stats.active_frames[:st.stats.iterations].max()) > 0
 
 
 def test_cli_one_step(tmp_path, capsys):

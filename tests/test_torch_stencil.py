@@ -397,10 +397,10 @@ def trajectory(request):
     margins = []
     line_search = tnewton._line_search
 
-    def recording(E, eps_E, ls_iters, merit):
+    def recording(E, eps_E, ls_iters, merit, alpha0=1.0):
         thresh = E + eps_E * E.abs()
         margins.append((float(merit(1.0) - thresh), float(E)))
-        return line_search(E, eps_E, ls_iters, merit)
+        return line_search(E, eps_E, ls_iters, merit, alpha0)
 
     out = []
     with pytest.MonkeyPatch.context() as mp:

@@ -1,18 +1,34 @@
 """Shared fixtures of the parity tests between mixedfem_tpu (JAX) and
 mixedfem_tpu_torch (PyTorch): one small beam built by both packages from
-the same host arrays, and the numpy hand-over of JAX dataclasses that
-mixedfem_tpu_torch.convert takes."""
+the same host arrays, two contact scenes written as scene files, and the
+numpy hand-over of JAX dataclasses that mixedfem_tpu_torch.convert takes.
+Nothing here imports JAX, so the card tests use it too."""
 
 from __future__ import annotations
 
 import dataclasses
+import json
 
 import numpy as np
+import pytest
 import torch
 
 from mixedfem_tpu_torch import convert
 
 CPU = torch.device("cpu")
+
+
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread for the test. The suite runs in several worker
+    processes on shared cores; torch's intra-op threads in each of them
+    then oversubscribe the cores and stall on their barriers, and the
+    contact tests, which run tens of thousands of small ops, slow down
+    by two orders of magnitude."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def beam_arrays(nx=6, ny=4, nz=3, seed=None):
@@ -77,3 +93,47 @@ def close(actual, expected, rtol, atol=0.0):
     """assert_allclose on a torch tensor against a JAX/numpy array."""
     a = actual.detach().cpu().numpy() if torch.is_tensor(actual) else actual
     np.testing.assert_allclose(a, np.asarray(expected), rtol=rtol, atol=atol)
+
+
+SNH_04 = {"energy": "Stable-Neohookean", "youngs_modulus": 1e6,
+          "poissons_ratio": 0.4, "density": 1000.0}
+
+
+def write_contact_scene(d, slab_cells, box_cells, slab_size, box_size,
+                        offset, slab_bc, **extra):
+    """A slab and a box as slab.mesh and box.mesh in directory `d` (a
+    pathlib.Path), and a scene JSON without mixed_variables, so that the
+    loader's default adds mixed-collision; the path of the JSON."""
+    from mixedfem_tpu_torch.io import mesh_io
+    from mixedfem_tpu_torch.mesh import generators
+
+    V1, T1 = generators.box_tet_mesh(*slab_cells, size=slab_size)
+    V2, T2 = generators.box_tet_mesh(*box_cells, size=box_size)
+    mesh_io.write_mesh(str(d / "slab.mesh"), V1, T1)
+    mesh_io.write_mesh(str(d / "box.mesh"), V2, T2)
+    scene = {
+        "dt": 0.01, "enable_ccd": True, "kappa": 1e5,
+        "material_models": [SNH_04],
+        "objects": [
+            {"path": "slab.mesh", "normalize": False,
+             "boundary_condition": slab_bc},
+            {"path": "box.mesh", "normalize": False, "offset": list(offset)},
+        ],
+    }
+    scene.update(extra)
+    path = d / "contact.json"
+    path.write_text(json.dumps(scene))
+    return str(path)
+
+
+def write_drop_scene(d, dhat=3e-2, newton=3):
+    """The drop scene of tests/test_collision.py (drop_scene): a slab
+    box_tet_mesh(2, 1, 2) over (1, 0.25, 1), pinned whole (hangends along y
+    with ratio 2), and a box_tet_mesh(2, 1, 2) over (0.4, 0.2, 0.4) at
+    (0.3, 0.27, 0.3); float64 contact at `dhat` (3e-2: inside it from the
+    start), itr_tol 1e-8."""
+    return write_contact_scene(
+        d, (2, 1, 2), (2, 1, 2), (1.0, 0.25, 1.0), (0.4, 0.2, 0.4),
+        (0.3, 0.27, 0.3), {"type": "hangends", "axis": 1, "ratio": 2.0},
+        dhat=dhat, max_newton_iterations=newton,
+        iterative_solver_tolerance=1e-8)
