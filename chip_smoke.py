@@ -86,13 +86,52 @@ failure:
    3 float64 steps of 3 Newton iterations on the card and on the CPU:
    positions agree to 1e-9 of scale; Newton counts, CG counts and active
    frames per iteration are equal.
-13. one JSON line of kernel results, then the device line last.
+13. 2D kernels: the triangle instances K1 (element_apply_k3d2, k=3, d=2)
+   and K3 (contract_G_Gw_n3, N=3), K2 at m=2 and m=4 over the incidence
+   plan of phase 14's mesh, and K4 at m=2 and m=4 over phase 15's banded
+   plan, held to their plain versions in float32 (1e-5 of scale) and
+   float64 (1e-12) and timed as in phase 3 (K1 and K3 in float64 too),
+   each beside its bound and, where there is one, the PyTorch call for
+   the same function (index_add_ for K2 and K4, the two einsums for K3).
+14. 2D main path: grid_tri_mesh(400, 125) over (4, 1) (100,000
+   triangles, 50,526 vertices; the beam's 2D counterpart), banded element
+   order, x=0 edge pinned, gravity; SNH (E=1e6, nu=0.45, rho=1000), BDF1,
+   h=0.02, 5 Newton iterations, itr_tol 1e-4, two-level coarse space of
+   target size 48 refreshed every 10 steps; float32 through newton_step,
+   one warm-up step and three timed steps, counters set to 0 just before
+   and read just after (K1 2D, K2 m=2, m=4, m=6, m=36 and K3 N=3 must
+   have run).
+15. 2D contact scene: a slab grid_tri_mesh(500, 40) over (2.0, 0.1) held
+   at its far x end by a hangends BC and a free box grid_tri_mesh(175,
+   175) over (0.5, 0.5) half of dhat above it (101,250 triangles, 51,517
+   vertices), as .obj files and a scene JSON without mixed_variables,
+   loaded with load_scene(dim=2) on the card in float32 (SNH E=1e6,
+   nu=0.4, gravity, BDF1, dt 0.01, CCD, dhat 1e-2, kappa 1e5, 5 Newton
+   iterations, pcg with the two-level coarse space) and stepped through
+   Simulation.step: one warm-up step and three timed steps, counters set
+   to 0 just before and read just after (K4 m=2 and m=4, and K2 over the
+   frame plan, must have run); it prints what phase 11 prints, and the
+   least mixed distance must be > 0.
+16. 2D trajectories, float64, card against CPU, 3 steps each: a
+   1000-triangle cantilever through newton_step (swinging from the start,
+   coarse space refreshed every 2nd step), a 2000-triangle two-object
+   scene without contact with a scripted rotation, moving down from the
+   start (load_scene builds the banded plan and the coarse space), and
+   the 2D drop scene of
+   tests/test_collision.py with contact, 3 Newton iterations: positions
+   agree to 1e-9 of scale; Newton counts, CG counts and (with contact)
+   active frames per iteration are equal.
+17. one JSON line of kernel results (the 2D instances and widths with
+   launches_by_path for tri_step and tri_contact_step), then the device
+   line last.
 
 --profile DIR additionally traces one more step of each main path with
 torch.profiler, logs the device time of each hand kernel in it, and writes
 the per-kernel tables to DIR/profile_step.txt (phase 4),
 DIR/profile_scene_step.txt (phase 6), DIR/profile_grid_step.txt
-(phase 8) and DIR/profile_contact_step.txt (phase 11).
+(phase 8), DIR/profile_contact_step.txt (phase 11),
+DIR/profile_tri_step.txt (phase 14) and DIR/profile_tri_contact_step.txt
+(phase 15).
 """
 
 from __future__ import annotations
@@ -139,7 +178,8 @@ def card_line() -> str:
 # ---------------------------------------------------------------------------
 
 def _sim(V, T, dtype, device):
-    """bench.py:build's mesh, config and initial state on the port."""
+    """bench.py:build's mesh, config and initial state on the port (V (nv,
+    3) tets or V (nv, 2) triangles)."""
     from mixedfem_tpu_torch.config import SimConfig, enu_to_lame
     from mixedfem_tpu_torch.mesh import mesh as meshmod
     from mixedfem_tpu_torch.optimizer import newton
@@ -150,7 +190,7 @@ def _sim(V, T, dtype, device):
         density=np.full(len(T), 1000.0), mu=np.full(len(T), mu),
         lam=np.full(len(T), la), model_id=np.zeros(len(T), int),
         models=("Stable-Neohookean",), is_fixed=V[:, 0] < 1e-9,
-        ext_force=np.tile(np.array([0.0, -9.8, 0.0]), (len(V), 1)),
+        ext_force=np.tile(np.array([0.0, -9.8, 0.0])[:V.shape[1]], (len(V), 1)),
         dtype=dtype, device=device,
     )
     config = SimConfig(
@@ -241,8 +281,8 @@ def copies(make, bytes_per_set):
 
 def step_inputs(mesh, state, dt):
     """What the main path hands the kernels: D, Hs, Gw at a perturbed state
-    of `mesh`, a vector p, and the corner rows of the matvec (m=3) and of
-    the diagonal blocks (m=9)."""
+    of `mesh` (tets or triangles), a vector p, and the corner rows of the
+    matvec (rows_p, m = d) and of the diagonal blocks (rows_blk, m = d^2)."""
     from mixedfem_tpu_torch.materials import models as mat
     from mixedfem_tpu_torch.mesh import mesh as meshmod
     from mixedfem_tpu_torch.ops import psd, rotation, smallops
@@ -254,36 +294,40 @@ def step_inputs(mesh, state, dt):
     x = state.x + 0.01 * torch.randn(state.x.shape, generator=g, device=dev,
                                      dtype=dtype) * mesh.free_mask[:, None]
     s = ms.reset(mesh, x)[0]
-    R, S = rotation.polar33(meshmod.def_grad(mesh, x))
-    D = rotation.dsdF33(R, S).contiguous()
+    d = mesh.dim
+    R, S = rotation.polar(meshmod.def_grad(mesh, x), d)
+    D = rotation.dsdF(R, S, d).contiguous()
     Hs = psd.psd_fix_sqrt(dt * dt * mat.hess_s_all(
         s, mesh.mu, mesh.lam, mesh.model_id, mesh.models), tol=1e-8)[2]
     Hs = Hs.contiguous()
     Gw = smallops.contract_G_Gw_plain(D, mesh.dphidX, Hs, mesh.vols)[1]
     Gw = Gw.contiguous()
-    p = torch.randn((mesh.nv, 3), generator=g, device=dev, dtype=dtype)
-    rows3 = opmod.element_apply_plain(
-        mesh.T, Gw, mesh.mass_coeff, mesh.free_mask, p).reshape(-1, 3)
-    rows3 = rows3.contiguous()
-    rows9 = torch.einsum("eikr,eiks->ekrs", Gw, Gw).reshape(-1, 9).contiguous()
-    return dict(D=D, Hs=Hs, Gw=Gw, p=p, rows3=rows3, rows9=rows9, g=g)
+    p = torch.randn((mesh.nv, d), generator=g, device=dev, dtype=dtype)
+    rows_p = opmod.element_apply_plain(
+        mesh.T, Gw, mesh.mass_coeff, mesh.free_mask, p).reshape(-1, d)
+    rows_p = rows_p.contiguous()
+    rows_blk = torch.einsum("eikr,eiks->ekrs", Gw, Gw).reshape(-1, d * d)
+    return dict(D=D, Hs=Hs, Gw=Gw, p=p, rows_p=rows_p,
+                rows_blk=rows_blk.contiguous(), g=g)
 
 
 def kernel_cases(mesh, cs, state, dt):
     """K1, K2 and K3 on the inputs the main path gives them: the
-    coefficients at a perturbed state of the 100k-tet beam."""
+    coefficients at a perturbed state of the 100k-tet beam (or of the 100k
+    triangle cantilever, whose instances and row widths the kernels take
+    by its shape). K2 at m = d and d^2 over the mesh's incidence plan, and
+    at the coarse widths 6 and 36 where a coarse space `cs` is given."""
     from mixedfem_tpu_torch import cuda
     from mixedfem_tpu_torch.ops import assembly, smallops
     from mixedfem_tpu_torch.solvers import operator as opmod
 
     dev, dtype = mesh.device, mesh.vols.dtype
+    E, k = mesh.T.shape
+    d = mesh.dim
+    N, k1_name, k3_name = cuda.SHAPES[(k, d)]
     ins = step_inputs(mesh, state, dt)
     D, Hs, Gw, p, g = ins["D"], ins["Hs"], ins["Gw"], ins["p"], ins["g"]
-    rows3, rows9 = ins["rows3"], ins["rows9"]
-    rows6 = torch.randn((mesh.nv, 6), generator=g, device=dev, dtype=dtype)
-    rows36 = torch.randn((cs.pair_plan.slots.shape[0], 36), generator=g,
-                         device=dev, dtype=dtype)
-    E = mesh.nelem
+    rows_p, rows_blk = ins["rows_p"], ins["rows_blk"]
     seg_v = mesh.T.reshape(-1).long()
 
     def k2_case(name, plan, rows, seg):
@@ -304,33 +348,44 @@ def kernel_cases(mesh, cs, state, dt):
     k1_ins = (mesh.T, Gw, mesh.mass_coeff, mesh.free_mask, p)
     k3_ins = (D, mesh.dphidX, Hs, mesh.vols)
     sq = torch.sqrt(mesh.vols)
+    nG = N * k * d  # values of G (and of Gw) per element
 
     def k3_library(D_, dphi, Hs_, vols):
         G = torch.einsum("eirc,ekc->eikr", D_, dphi)
         return G, torch.einsum("e,eij,ejkr->eikr", sq, Hs_, G)
 
-    return [
+    cases = [
         dict(
-            name="element_apply", replaces="mixedfem_tpu/ops/brick.py:176",
+            name=k1_name, replaces="mixedfem_tpu/ops/brick.py:176",
             kernel=cuda.element_apply, plain=opmod.element_apply_plain,
             library=None, make=lambda: tuple(t.clone() for t in k1_ins),
-            bytes=nbytes(*k1_ins) + E * 12 * p.element_size(),
-            # per element: 12 mask products, Gw pe and Gw^T q (2 x 72 FMA),
-            # mass (48 FMA)
-            flops=E * (12 + 2 * 144 + 96),
+            bytes=nbytes(*k1_ins) + E * k * d * p.element_size(),
+            # per element: k d mask products, Gw pe and Gw^T q (2 x N k d
+            # FMA), mass (k k d FMA): tets 12 + 2 x 144 + 96
+            flops=E * (k * d + 2 * 2 * nG + 2 * k * k * d),
         ),
-        k2_case("segment_sum_m3", mesh.plan, rows3, seg_v),
-        k2_case("segment_sum_m9", mesh.plan, rows9, seg_v),
-        k2_case("segment_sum_m6", cs.agg_plan, rows6, cs.agg_id),
-        k2_case("segment_sum_m36", cs.pair_plan, rows36, cs.pair_id.reshape(-1)),
+        k2_case(f"segment_sum_m{d}", mesh.plan, rows_p, seg_v),
+        k2_case(f"segment_sum_m{d * d}", mesh.plan, rows_blk, seg_v),
+    ]
+    if cs is not None:
+        rows6 = torch.randn((mesh.nv, 6), generator=g, device=dev, dtype=dtype)
+        rows36 = torch.randn((cs.pair_plan.slots.shape[0], 36), generator=g,
+                             device=dev, dtype=dtype)
+        cases += [
+            k2_case("segment_sum_m6", cs.agg_plan, rows6, cs.agg_id),
+            k2_case("segment_sum_m36", cs.pair_plan, rows36,
+                    cs.pair_id.reshape(-1)),
+        ]
+    return cases + [
         dict(
-            name="contract_G_Gw", replaces="mixedfem_tpu/ops/smallops.py:22",
+            name=k3_name, replaces="mixedfem_tpu/ops/smallops.py:22",
             kernel=cuda.contract_G_Gw, plain=smallops.contract_G_Gw_plain,
             library=k3_library,
             make=lambda: tuple(t.clone() for t in k3_ins),
-            bytes=nbytes(*k3_ins) + 2 * E * 72 * D.element_size(),
-            # per element: G (72 x 3 FMA), Hs G (72 x 6 FMA), scale (72)
-            flops=E * (2 * 216 + 2 * 432 + 72),
+            bytes=nbytes(*k3_ins) + 2 * E * nG * D.element_size(),
+            # per element: G (nG x d FMA), Hs G (nG x N FMA), scale (nG):
+            # tets 2 x 216 + 2 x 432 + 72
+            flops=E * (2 * nG * d + 2 * nG * N + nG),
         ),
     ]
 
@@ -397,17 +452,18 @@ def tile_sweep(case):
     return out
 
 
-def k4_cases(plan, inc, rows3, rows9, label):
-    """K4 at m=3 (matvec, rhs, inertia gradient) and m=9 (diagonal blocks)
-    on `plan`, with the corner rows in element order padded to its Rp; K2
-    over the mesh's incidence plan `inc` on the same rows is timed beside
-    it (the same function, another design)."""
+def k4_cases(plan, inc, rows_p, rows_blk, label):
+    """K4 at m = d (matvec, rhs, inertia gradient: 3 for tets, 2 for
+    triangles) and m = d^2 (diagonal blocks) on `plan`, with the corner rows
+    in element order padded to its Rp; K2 over the mesh's incidence plan
+    `inc` on the same rows is timed beside it (the same function, another
+    design)."""
     from mixedfem_tpu_torch import cuda
     from mixedfem_tpu_torch.ops import banded_scatter as bs
 
     Rp = plan.lidx.shape[0]
     R = inc.slots.shape[0]
-    dev = rows3.device
+    dev = rows_p.device
     # the vertex of every row, from K4's CSR (the zero padding rows: 0)
     seg = torch.zeros(Rp, dtype=torch.int64, device=dev)
     seg[plan.csr.slots.long()] = plan.csr.seg
@@ -432,7 +488,7 @@ def k4_cases(plan, inc, rows3, rows9, label):
             flops=Rp * m,
         )
 
-    return [case(rows3), case(rows9)]
+    return [case(rows_p), case(rows_blk)]
 
 
 def stencil_cases(mesh, plan, state, dt, dtype):
@@ -588,7 +644,7 @@ def main_path(mesh, config, state, cs, plan=None, what="100k-tet"):
         f"Newton {sum(map(sum, cg)) / newton_its:.2f}, launches over 4 "
         f"steps {launches}")
     final = states[-1]
-    if final.x.shape != (mesh.nv, 3) or not torch.isfinite(final.x).all():
+    if final.x.shape != (mesh.nv, mesh.dim) or not torch.isfinite(final.x).all():
         raise AssertionError(f"the {what} step produced non-finite positions")
     for st in states:
         check_energies(st)
@@ -743,17 +799,17 @@ def scene_main_path(sim):
     return step_ms, launches
 
 
-def scene_trajectory(d):
-    """3 float64 steps of a 2000-tet scene on the card (K4 over the banded
-    plan) and on the CPU (the same objects moved there: the plain versions
-    over the same element order and plan)."""
+def scene_trajectory(path, dim=3):
+    """3 float64 steps of the scene at `path` (of 2000 elements or more) on
+    the card (K4 over the banded plan) and on the CPU (the same objects
+    moved there: the plain versions over the same element order and
+    plan)."""
     from mixedfem_tpu_torch.device import to_device
     from mixedfem_tpu_torch.io.scene import load_scene
 
-    path = write_scene(d, 20, 5, 4, newton=3, seed=1)
-    card = load_scene(path, dim=3, dtype="float64", device="cuda")
+    card = load_scene(path, dim=dim, dtype="float64", device="cuda")
     if card.matvec_plan is None or card.coarse is None:
-        raise AssertionError("a 2000-tet scene loads without the banded plan")
+        raise AssertionError("a 2000-element scene loads without the banded plan")
     cpu = to_device(card, "cpu")
     log(f"  E {card.mesh.nelem} nv {card.mesh.nv} W {card.matvec_plan.W}")
     for k in range(3):
@@ -931,7 +987,7 @@ def contact_main_path(sim):
         f"distance {dmin:.6e}, most active frames {active}, launches over "
         f"4 steps {launches}")
     x = sim.state.x
-    if x.shape != (sim.mesh.nv, 3) or not torch.isfinite(x).all():
+    if x.shape != (sim.mesh.nv, sim.mesh.dim) or not torch.isfinite(x).all():
         raise AssertionError("the contact step produced non-finite positions")
     if not (active > 0 and 0 < dmin < math.inf):
         raise AssertionError(f"no feasible contact: {active} active frames, "
@@ -939,14 +995,13 @@ def contact_main_path(sim):
     return step_ms, launches
 
 
-def contact_trajectory(d):
-    """3 float64 steps of the drop scene on the card and on the CPU (the
-    same loaded objects moved there)."""
+def contact_trajectory(path, dim=3):
+    """3 float64 steps of the drop scene at `path` on the card and on the
+    CPU (the same loaded objects moved there)."""
     from mixedfem_tpu_torch.device import to_device
     from mixedfem_tpu_torch.io.scene import load_scene
 
-    card = load_scene(write_drop_scene(d), dim=3, dtype="float64",
-                      device="cuda")
+    card = load_scene(path, dim=dim, dtype="float64", device="cuda")
     cpu = to_device(card, "cpu")
     log(f"  E {card.mesh.nelem} nv {card.mesh.nv} variables "
         f"{card.config.mixed_variables}")
@@ -967,6 +1022,146 @@ def contact_trajectory(d):
             raise AssertionError("Newton, CG or active-frame counts differ")
         if not int(c.stats.active_frames[:it].max()) > 0:
             raise AssertionError("the drop scene has no active contact")
+
+
+# ---------------------------------------------------------------------------
+# phases 13-16: the 2D paths (linear triangles)
+# ---------------------------------------------------------------------------
+
+def tri_beam(nx, ny, dtype, device):
+    """The bench beam's 2D counterpart on the port: grid_tri_mesh(nx, ny)
+    over (4, 1) in banded element order, x=0 edge pinned, gravity; SNH
+    (E=1e6, nu=0.45, rho=1000), BDF1, h=0.02, 5 Newton iterations, itr_tol
+    1e-4, two-level coarse space of target size 48 refreshed every 10
+    steps. Mesh, config, initial state, coarse space."""
+    from mixedfem_tpu_torch.mesh import generators
+    from mixedfem_tpu_torch.solvers import coarse as coarsemod
+    from mixedfem_tpu_torch.solvers.operator import sort_elements_banded
+
+    V, T = generators.grid_tri_mesh(nx, ny, size=(4.0, 1.0))
+    T = T[sort_elements_banded(T)]
+    mesh, config, state = _sim(V, T, dtype, device)
+    cs = coarsemod.build_coarse_space(
+        V, T, V[:, 0] < 1e-9, target_size=48, dtype=dtype, device=device
+    )
+    return mesh, config, state, cs
+
+
+def write_tri_scene(d, objects, **extra):
+    """A 2D scene in directory `d`: each of `objects` is (name, (V, T),
+    scene object dict), the mesh written as <name>.obj; the JSON (SNH
+    E=1e6, nu=0.4, dt 0.01, and the keys `extra`) as scene2d.json, whose
+    path is returned."""
+    from mixedfem_tpu_torch.io import mesh_io
+
+    objs = []
+    for name, (V, T), obj in objects:
+        mesh_io.write_obj(os.path.join(d, f"{name}.obj"), V, T)
+        objs.append(dict(obj, path=f"{name}.obj"))
+    scene = {"dt": 0.01, "material_models": [SNH_04], "objects": objs}
+    scene.update(extra)
+    path = os.path.join(d, "scene2d.json")
+    with open(path, "w") as f:
+        json.dump(scene, f)
+    return path
+
+
+def write_tri_contact_scene(d):
+    """Phase 15's slab grid_tri_mesh(500, 40) over (2.0, 0.1), held at its
+    far x end by a hangends BC, and a free box grid_tri_mesh(175, 175) over
+    (0.5, 0.5) whose bottom lies half of dhat above it (101,250 triangles,
+    51,517 vertices), as .obj files and a scene JSON without
+    mixed_variables (the loader's default adds mixed-collision): gravity,
+    BDF1, CCD, dhat 1e-2, kappa 1e5, 5 Newton iterations, pcg with the
+    two-level coarse space."""
+    from mixedfem_tpu_torch.mesh import generators
+
+    return write_tri_scene(
+        d,
+        [("slab", generators.grid_tri_mesh(500, 40, size=(2.0, 0.1)),
+          {"normalize": False,
+           "boundary_condition": {"type": "hangends", "axis": 0}}),
+         ("box", generators.grid_tri_mesh(175, 175, size=(0.5, 0.5)),
+          {"normalize": False,
+           "offset": [0.75, 0.1 + 0.5 * CONTACT_DHAT, 0.0]})],
+        time_integrator="BDF1", enable_ccd=True, dhat=CONTACT_DHAT,
+        kappa=1e5, max_newton_iterations=5)
+
+
+def write_tri_two_objects(d):
+    """A 2D scene of 2,000 triangles without contact (mixed_variables
+    mixed-stretch only), so that load_scene builds the banded plan and the
+    coarse space: a beam grid_tri_mesh(40, 10) over (2, 0.5) twisted (in
+    the plane) by a scripted BC, and a block grid_tri_mesh(30, 20) over
+    (0.6, 0.4) below it, pinned at its far x end; 3 Newton iterations.
+    Both start moving down at 1 m/s: from rest, the first step's third
+    Newton iteration sits on the rounding floor (decrement 1e-7), where a
+    CG count depends on the order of a reduction."""
+    from mixedfem_tpu_torch.mesh import generators
+
+    down = [0.0, -1.0, 0.0]
+    return write_tri_scene(
+        d,
+        [("beam", generators.grid_tri_mesh(40, 10, size=(2.0, 0.5)),
+          {"normalize": False, "initial_velocity": down,
+           "boundary_condition":
+           {"type": "twist", "ratio": 0.1, "axis": 0, "velocity": 0.5}}),
+         ("block", generators.grid_tri_mesh(30, 20, size=(0.6, 0.4)),
+          {"normalize": False, "offset": [0.5, -1.0, 0.0],
+           "initial_velocity": down,
+           "boundary_condition": {"type": "hangends", "axis": 0}})],
+        dt=0.02, max_newton_iterations=3, mixed_variables=["mixed-stretch"])
+
+
+def write_tri_drop_scene(d, dhat=3e-2):
+    """The 2D drop scene of tests/test_collision.py (drop_scene(dim=2)): a
+    slab grid_tri_mesh(4, 1) over (1, 0.2), pinned whole (hangends along y
+    with ratio 2), and a box grid_tri_mesh(2, 1) over (0.3, 0.15) at
+    (0.35, 0.23); float64 contact at `dhat`, 3 Newton iterations."""
+    from mixedfem_tpu_torch.mesh import generators
+
+    return write_tri_scene(
+        d,
+        [("slab", generators.grid_tri_mesh(4, 1, size=(1.0, 0.2)),
+          {"normalize": False, "boundary_condition":
+           {"type": "hangends", "axis": 1, "ratio": 2.0}}),
+         ("box", generators.grid_tri_mesh(2, 1, size=(0.3, 0.15)),
+          {"normalize": False, "offset": [0.35, 0.23, 0.0]})],
+        enable_ccd=True, dhat=dhat, kappa=1e5, max_newton_iterations=3,
+        iterative_solver_tolerance=1e-8)
+
+
+def tri_trajectory():
+    """3 float64 steps of a 1000-triangle cantilever (grid_tri_mesh(50,
+    10)) on the card and on the CPU, swinging from the start (v_y = -2 x /
+    4, so that no Newton iteration of the three sits on the rounding
+    floor), with the coarse space refreshed every 2nd step."""
+    import dataclasses
+
+    from mixedfem_tpu_torch.optimizer import newton
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        mesh, config, state, cs = tri_beam(50, 10, torch.float64, dev)
+        config = dataclasses.replace(config, outer_steps=3,
+                                     coarse_refresh_every=2)
+        v0 = torch.zeros_like(state.x)
+        v0[:, 1] = -2.0 * mesh.V0[:, 0] / 4.0
+        state = newton.init_state(mesh, config, (), state.x, v0)
+        out[dev] = run_steps(mesh, config, state, cs, 3)
+    log(f"  E {mesh.nelem} nv {mesh.nv} aggregates {cs.naggr}")
+    for k, (g, c) in enumerate(zip(out["cuda"], out["cpu"])):
+        scale = c.x.abs().max().item()
+        err = (g.x.cpu() - c.x).abs().max().item()
+        cg_g = g.stats.solver_iters.tolist()
+        cg_c = c.stats.solver_iters.tolist()
+        log(f"  step {k}: max |x_card - x_cpu| {err:.3e} (scale {scale:.3f}), "
+            f"CG card {cg_g} cpu {cg_c}, alpha card {g.stats.alpha.tolist()} "
+            f"cpu {c.stats.alpha.tolist()}")
+        if not err <= 1e-9 * scale:
+            raise AssertionError("the card's 2D trajectory leaves the CPU's")
+        if cg_g != cg_c or g.stats.iterations != c.stats.iterations:
+            raise AssertionError("CG or Newton counts differ")
 
 
 def profile_step(step, out_dir, name, untraced_ms):
@@ -1072,10 +1267,10 @@ def main() -> int:
         log("  " + plan_line(name, pl))
     beam_rows = step_inputs(mesh, state, dt)
     scene_rows = step_inputs(sim.mesh, sim.state, dt)
-    k4_beam = k4_cases(beam_plan, mesh.plan, beam_rows["rows3"],
-                       beam_rows["rows9"], f"beam, W={beam_plan.W}")
-    k4_scene = k4_cases(sim.matvec_plan, sim.mesh.plan, scene_rows["rows3"],
-                        scene_rows["rows9"], f"scene, W={sim.matvec_plan.W}")
+    k4_beam = k4_cases(beam_plan, mesh.plan, beam_rows["rows_p"],
+                       beam_rows["rows_blk"], f"beam, W={beam_plan.W}")
+    k4_scene = k4_cases(sim.matvec_plan, sim.mesh.plan, scene_rows["rows_p"],
+                        scene_rows["rows_blk"], f"scene, W={sim.matvec_plan.W}")
     del beam_rows, scene_rows
     errs.update(check_kernels(k4_beam + k4_scene, torch.float32, 1e-5))
 
@@ -1159,7 +1354,7 @@ def main() -> int:
 
     log("phase 7: float64 scene trajectory, card against CPU")
     with tempfile.TemporaryDirectory() as d:
-        scene_trajectory(d)
+        scene_trajectory(write_scene(d, 20, 5, 4, newton=3, seed=1))
     tmp.cleanup()
 
     log("phase 8: grid path, 100k tets, float32 (stencil plan, grid coarse "
@@ -1198,32 +1393,114 @@ def main() -> int:
 
     log("phase 12: float64 contact trajectory, card against CPU")
     with tempfile.TemporaryDirectory() as d:
-        contact_trajectory(d)
+        contact_trajectory(write_drop_scene(d))
 
-    log("phase 13: results")
-    replaces = {c["name"]: c["replaces"] for c in cases32 + k4_scene}
+    log("phase 13: 2D kernels at the 100k-triangle shapes")
+    t0 = time.perf_counter()
+    tmesh, tconfig, tstate, tcs = tri_beam(400, 125, torch.float32, "cuda")
+    log(f"  triangle beam built in {time.perf_counter() - t0:.1f} s: E "
+        f"{tmesh.nelem} nv {tmesh.nv} aggregates {tcs.naggr} ncd {tcs.ncd}")
+    log("  " + plan_line("vertex plan", tmesh.plan))
+    tri32 = kernel_cases(tmesh, None, tstate, dt)
+    errs.update(check_kernels(tri32, torch.float32, 1e-5))
+    tmesh64, _, tstate64, _ = tri_beam(400, 125, torch.float64, "cuda")
+    tri64 = kernel_cases(tmesh64, None, tstate64, dt)
+    check_kernels(tri64, torch.float64, 1e-12)
+    tri64_t = {t["name"]: t for t in time_kernels(
+        [c for c in tri64 if not c["name"].startswith("segment")],
+        torch.float64)}
+    del tmesh64, tstate64, tri64
+    tri32_t = time_kernels(tri32, torch.float32)
+    # K4 over phase 15's scene plan
+    ttmp = tempfile.TemporaryDirectory()
+    t0 = time.perf_counter()
+    tsim = load_scene(write_tri_contact_scene(ttmp.name), dim=2,
+                      dtype="float32", device="cuda")
+    log(f"  2D contact scene loaded in {time.perf_counter() - t0:.1f} s: E "
+        f"{tsim.mesh.nelem} nv {tsim.mesh.nv} W {tsim.matvec_plan.W}, "
+        f"aggregates {tsim.coarse.naggr}, variables "
+        f"{tsim.config.mixed_variables}")
+    log("  " + plan_line("2D scene K4 plan", tsim.matvec_plan.csr))
+    rows = step_inputs(tsim.mesh, tsim.state, dt)
+    k4_tri = k4_cases(tsim.matvec_plan, tsim.mesh.plan, rows["rows_p"],
+                      rows["rows_blk"], f"2D scene, W={tsim.matvec_plan.W}")
+    del rows
+    errs.update(check_kernels(k4_tri, torch.float32, 1e-5))
+    check_kernels(k4_tri, torch.float64, 1e-12, cast=f64)
+    k4_tri_t = time_kernels(k4_tri, torch.float32)
+
+    log("phase 14: 2D main path, 100k triangles, float32")
+    tfinal, tri_ms, tri_launches = main_path(tmesh, tconfig, tstate, tcs,
+                                             what="100k-triangle")
+    need = ("element_apply_k3d2", "segment_sum_m2", "segment_sum_m4",
+            "segment_sum_m6", "segment_sum_m36", "contract_G_Gw_n3")
+    missing = [k for k in need if tri_launches.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the 2D path: {missing}")
+    if args.profile:
+        profile_step(lambda: run_steps(tmesh, tconfig, tfinal, tcs, 1),
+                     args.profile, "tri_step", tri_ms)
+    del tmesh, tstate, tcs, tfinal
+
+    log("phase 15: 2D contact scene, 101k triangles, float32 (load_scene "
+        "with dim=2 without mixed_variables, Simulation.step)")
+    tcontact_ms, tcontact_launches = contact_main_path(tsim)
+    need = ("element_apply_k3d2", "banded_sum_m2", "banded_sum_m4",
+            "segment_sum_m2", "segment_sum_m4", "segment_sum_m6",
+            "segment_sum_m36", "contract_G_Gw_n3")
+    missing = [k for k in need if tcontact_launches.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(
+            f"kernels not launched on the 2D contact path: {missing}")
+    if args.profile:
+        profile_step(tsim.step, args.profile, "tri_contact_step", tcontact_ms)
+    del tsim
+    ttmp.cleanup()
+
+    log("phase 16: float64 2D trajectories, card against CPU")
+    log("  the 1000-triangle cantilever through newton_step")
+    tri_trajectory()
+    with tempfile.TemporaryDirectory() as d:
+        log("  a 2000-triangle two-object scene with a rotation BC")
+        scene_trajectory(write_tri_two_objects(d), dim=2)
+    with tempfile.TemporaryDirectory() as d:
+        log("  the 2D drop scene with contact")
+        contact_trajectory(write_tri_drop_scene(d), dim=2)
+
+    log("phase 17: results")
+    replaces = {c["name"]: c["replaces"] for c in cases32 + k4_scene
+                + tri32 + k4_tri}
     replaces.update({t["name"]: "mixedfem_tpu/ops/stencil.py:" + (
         "378" if t["name"] == "stencil_apply" else "187") for t in st32_t})
     k4_other = {t["name"]: t for t in k4_beam_t}
     contact_keys = {t["key"] for t in k2c_t}
     kernels = []
-    for t in timings + k4_scene_t + st32_t + k2c_t:
+    tri_keys = {t["key"] for t in tri32_t + k4_tri_t}
+    for t in timings + k4_scene_t + st32_t + k2c_t + tri32_t + k4_tri_t:
         name = t["name"]
         by_path = {"beam_step": launches.get(name, 0),
                    "scene_step": scene_launches.get(name, 0),
                    "grid_step": grid_launches.get(name, 0),
-                   "contact_step": contact_launches.get(name, 0)}
+                   "contact_step": contact_launches.get(name, 0),
+                   "tri_step": tri_launches.get(name, 0),
+                   "tri_contact_step": tcontact_launches.get(name, 0)}
+        if t["key"] in tri_keys:
+            # the 2D path that carries the instance: K4 the contact
+            # scene's, K1-K3 the triangle beam's (phase 14)
+            path = ("tri_contact_step" if name.startswith("banded")
+                    else "tri_step")
+        else:
+            # K4 the scene's, K5 and K6 the grid's, K2 at the contact
+            # shapes the contact scene's, K1-K3 the bench beam's (phase 4)
+            path = ("contact_step" if t["key"] in contact_keys
+                    else "scene_step" if name.startswith("banded")
+                    else "grid_step" if name.startswith("stencil")
+                    else "beam_step")
         entry = dict(
             name=name, route="cuda",
             source="mixedfem_tpu_torch/csrc/kernels.cu",
             replaces=replaces[name],
-            # the path that carries the kernel: K4 the scene's, K5 and K6
-            # the grid's, K2 at the contact shapes the contact scene's,
-            # K1-K3 the bench beam's (phase 4)
-            launches=by_path["contact_step" if t["key"] in contact_keys
-                             else "scene_step" if name.startswith("banded")
-                             else "grid_step" if name.startswith("stencil")
-                             else "beam_step"],
+            launches=by_path[path],
             launches_by_path=by_path, max_abs_err=errs[t["key"]],
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"],
@@ -1241,13 +1518,19 @@ def main() -> int:
             entry["tile_us_f64"] = k3_tiles["float64"]
             entry["f64"] = {k: k3_64_t[k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
-        c = next((c for c in cases32 if c["name"] == name), {})
+        if name in tri64_t:
+            entry["f64"] = {k: tri64_t[name][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        c = next((c for c in cases32 + tri32 if c["name"] == name), {})
         if t["key"] in contact_keys:
             entry["shapes"] = t["key"]
             entry["npieces"] = k2c_pieces[t["key"]]
         elif "npieces" in c:
             entry["npieces"] = c["npieces"]
-        if name in k4_other:
+        if t["key"] in tri_keys and name.startswith("banded"):
+            entry["shapes"] = t["key"]
+            entry["k2_same_rows_ms"] = t["k2_same_rows_ms"]
+        elif name in k4_other:
             o = k4_other[name]
             entry["shapes"] = t["key"]
             entry["k2_same_rows_ms"] = t["k2_same_rows_ms"]
@@ -1256,7 +1539,9 @@ def main() -> int:
                 "k2_same_rows_ms")}
         kernels.append(entry)
     log(f"{card}, ms_per_step {step_ms:.3f}, scene ms_per_step {scene_ms:.3f}, "
-        f"grid ms_per_step {grid_ms:.3f}, contact ms_per_step {contact_ms:.3f}")
+        f"grid ms_per_step {grid_ms:.3f}, contact ms_per_step {contact_ms:.3f}, "
+        f"2D ms_per_step {tri_ms:.3f}, 2D contact ms_per_step "
+        f"{tcontact_ms:.3f}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -55,10 +55,10 @@ class BCSpec:
     group0: torch.Tensor   # (nv,) mask: bottom slab
     group1: torch.Tensor   # (nv,) mask: top slab
     fixed: torch.Tensor    # (nv,) mask: pinned vertices of this BC
-    center: torch.Tensor   # (3,) rotation center (twist)
-    center0: torch.Tensor  # (3,) group-0 rotation center (bend)
-    center1: torch.Tensor  # (3,) group-1 rotation center (bend)
-    vel_vec: torch.Tensor  # (3,) translation velocity vector
+    center: torch.Tensor   # (d,) rotation center (twist)
+    center0: torch.Tensor  # (d,) group-0 rotation center (bend)
+    center1: torch.Tensor  # (d,) group-1 rotation center (bend)
+    vel_vec: torch.Tensor  # (d,) translation velocity vector
     type: str
     velocity: float
     duration: float
@@ -154,10 +154,14 @@ def build_bc(
 
 
 def _rot_about(V, center, angle: float, axis_3d: str):
-    """Positions rotated about `center` by `angle` about the x or z axis."""
+    """Positions rotated about `center` by `angle`: in the plane in 2D, about
+    the x or z axis in 3D."""
     c, s = math.cos(angle), math.sin(angle)
     P = V - center
-    if axis_3d == "x":
+    if V.shape[1] == 2:
+        Q = torch.stack([c * P[:, 0] - s * P[:, 1], s * P[:, 0] + c * P[:, 1]],
+                        dim=-1)
+    elif axis_3d == "x":
         y = c * P[:, 1] - s * P[:, 2]
         z = s * P[:, 1] + c * P[:, 2]
         Q = torch.stack([P[:, 0], y, z], dim=-1)
@@ -177,8 +181,6 @@ def bc_step(spec: BCSpec, st: BCState, V: torch.Tensor, dt: float):
     """Advance a scripted BC one timestep: (V', st'). Static types return
     their input."""
     t = spec.type
-    if V.shape[1] != 3:
-        raise NotImplementedError("boundary conditions of 2D meshes")
     if t in ("null", "scale", "randomize", "onepoint", "hang", "hangends"):
         return V, st
 
@@ -208,8 +210,8 @@ def bc_step(spec: BCSpec, st: BCState, V: torch.Tensor, dt: float):
 
     a = spec.velocity * math.pi * dt
     if t == "twist":
-        # the groups rotate about the x axis at +-velocity*pi rad/s about
-        # the object's bounding-box center
+        # the groups rotate about the x axis (in the plane in 2D) at
+        # +-velocity*pi rad/s about the object's bounding-box center
         return _two_group_motion(
             spec, V, _rot_about(V, spec.center, a, "x"),
             _rot_about(V, spec.center, -a, "x"),

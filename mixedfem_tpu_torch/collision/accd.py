@@ -23,8 +23,8 @@ _CHECK_EVERY = 16   # iterations between host reads of "all done"
 
 
 def accd_t(verts0, pverts, ftype):
-    """Per-frame CCD time in (0, 1]: verts0 (C, 4, 3) positions, pverts
-    (C, 4, 3) motion. At every host check the frames still running are
+    """Per-frame CCD time in (0, 1]: verts0 (C, 4, d) positions, pverts
+    (C, 4, d) motion. At every host check the frames still running are
     gathered into a smaller working set; that changes no frame's
     arithmetic."""
     # subtract the mean motion; bound the relative motion by 2 x the
@@ -64,7 +64,7 @@ def accd_t(verts0, pverts, ftype):
 
 def accd_alpha(frames, ftype, fmask, x, p_full):
     """Min CCD step over the real candidate frames (fmask > 0): frames
-    (C, 4) int32, x and p_full (nv, 3). A scalar tensor in (0, 1]."""
+    (C, 4) int32, x and p_full (nv, d). A scalar tensor in (0, 1]."""
     real = torch.nonzero(fmask > 0).squeeze(1)
     if real.numel() == 0:
         return x.new_ones(())

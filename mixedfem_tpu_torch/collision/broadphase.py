@@ -1,20 +1,22 @@
 """Host broadphase: candidate contact frames within a distance margin
-(port of mixedfem_tpu/collision/broadphase.py, 3D).
+(port of mixedfem_tpu/collision/broadphase.py).
 
 A uniform grid hash over surface primitives gives padded candidate arrays:
 
   frames: (C, 4) int32 vertex ids (full-mesh indexing)
-  types:  (C,)   int32 (distances.PT / EE)
+  types:  (C,)   int32 (distances.PT / EE / PE)
 
 3D: point-triangle (surface vertex x face, excluding incident faces) and
 edge-edge (surface edge pairs, excluding pairs that share a vertex).
+2D: point-edge (boundary vertex x boundary edge, excluding incident
+edges), frames (v, e0, e1, -1).
 Candidates whose distance bound exceeds `margin` are dropped; the arrays
 are padded to a fixed capacity with inert frames.
 
 The grid hash is one vectorized numpy pass: integer cell keys, one sorted
 table of the second point set's keys, and a searchsorted of it for each of
-the 27 neighbour offsets. Pairs come out ordered by (first point, offset,
-second point), the order of the JAX package's native grid hash
+the 27 (2D: 9) neighbour offsets. Pairs come out ordered by (first point,
+offset, second point), the order of the JAX package's native grid hash
 (csrc/native.cpp), so both packages build the same frames in the same
 order.
 """
@@ -23,19 +25,22 @@ from __future__ import annotations
 
 import numpy as np
 
-from mixedfem_tpu_torch.collision.distances import EE, PP, PT
+from mixedfem_tpu_torch.collision.distances import EE, PE, PP, PT
 
 # neighbour offsets in the native hash's order: x fastest, then y, then z
-_OFFSETS = np.stack([np.arange(27) % 3, (np.arange(27) // 3) % 3,
-                     np.arange(27) // 9], axis=1) - 1
+_OFFSETS = {
+    3: np.stack([np.arange(27) % 3, (np.arange(27) // 3) % 3,
+                 np.arange(27) // 9], axis=1) - 1,
+    2: np.stack([np.arange(9) % 3, np.arange(9) // 3], axis=1) - 1,
+}
 
 
 def _grid_pairs(P0: np.ndarray, P1, cell: float, keep):
-    """All (i, j) with P1[j]'s cell in the 27-neighbourhood of P0[i]'s, and
-    keep(i, j) true: (i, j) int64 arrays ordered by (i, offset, j). With
-    P1 None the set is P0 against itself and only pairs i < j are made:
-    each unordered pair is found once, from the 13 offsets of one half
-    and within a cell, and then oriented."""
+    """All (i, j) with P1[j]'s cell in the 27-neighbourhood (2D: 9) of
+    P0[i]'s, and keep(i, j) true: (i, j) int64 arrays ordered by (i,
+    offset, j). With P1 None (3D only) the set is P0 against itself and only
+    pairs i < j are made: each unordered pair is found once, from the 13
+    offsets of one half and within a cell, and then oriented."""
     sym = P1 is None
     P1 = P0 if sym else P1
     c0 = np.floor(P0 / cell).astype(np.int64)
@@ -45,17 +50,22 @@ def _grid_pairs(P0: np.ndarray, P1, cell: float, keep):
     if float(np.prod(ext.astype(np.float64))) >= 2.0**62:
         raise ValueError(f"a grid of {ext.tolist()} cells of {cell}")
 
+    offsets = _OFFSETS[P0.shape[1]]
+
     def key(c):
         c = c - lo
-        return (c[:, 0] * ext[1] + c[:, 1]) * ext[2] + c[:, 2]
+        k = c[:, 0]
+        for j in range(1, c.shape[1]):
+            k = k * ext[j] + c[:, j]
+        return k
 
     order = np.argsort(key(c1), kind="stable")
     table = key(c1)[order]
     rows = np.arange(len(P0))
     out_i, out_o, out_j = [], [], []
     # offset o and its mirror 26 - o; offsets 14-26 are the far half
-    for o in range(14 if sym else 27):
-        q = key(c0 + _OFFSETS[o])
+    for o in range(14 if sym else len(offsets)):
+        q = key(c0 + offsets[o])
         a = np.searchsorted(table, q, side="left")
         n = np.searchsorted(table, q, side="right") - a
         total = int(n.sum())
@@ -142,6 +152,26 @@ def candidates_3d(V, F_srf, E_srf, surf_verts, margin: float):
     if frames:
         return np.concatenate(frames), np.concatenate(types)
     return np.zeros((0, 4), np.int32), np.zeros(0, np.int32)
+
+
+def candidates_2d(V, E_srf, surf_verts, margin: float):
+    """2D candidate frames: point-edge (v, e0, e1, -1); (frames (C, 4)
+    int32, types (C,) int32)."""
+    Pv = V[surf_verts]
+    em = _seg_midpoints(V, E_srf)
+    er = _seg_radius(V, E_srf)
+
+    def keep_pe(ii, jj):
+        v, e = surf_verts[ii], E_srf[jj]
+        apart = (e[:, 0] != v) & (e[:, 1] != v)  # not incident
+        dist_ub = np.linalg.norm(Pv[ii] - em[jj], axis=1) - er[jj]
+        return apart & (dist_ub < margin)
+
+    ii, jj = _grid_pairs(Pv, em, max(margin + er.max(), 1e-8), keep_pe)
+    frames = np.concatenate(
+        [surf_verts[ii][:, None], E_srf[jj], np.full((len(ii), 1), -1)],
+        axis=1).astype(np.int32)
+    return frames, np.full(len(ii), PE, np.int32)
 
 
 def capacity(n: int, max_frames: int = 0) -> int:

@@ -135,9 +135,13 @@ def edge_edge(p0, p1, q0, q1):
 
 
 def frame_distance(verts, ftype):
-    """verts (..., 4, 3) gathered frame vertices, ftype (...,) int32: the
-    UNSQUARED distance per frame, every type evaluated and selected."""
+    """verts (..., 4, d) gathered frame vertices, ftype (...,) int32: the
+    UNSQUARED distance per frame, every type evaluated and selected (2D:
+    point-edge and point-point)."""
     v0, v1, v2, v3 = (verts[..., i, :] for i in range(4))
+    if verts.shape[-1] == 2:
+        return torch.where(ftype == PE, point_edge(v0, v1, v2),
+                           point_point(v0, v1))
     d_pt = point_triangle(v0, v1, v2, v3)
     d_ee = edge_edge(v0, v1, v2, v3)
     d_pe = point_edge(v0, v1, v2)
@@ -148,7 +152,7 @@ def frame_distance(verts, ftype):
 
 
 def frame_distance_grad(verts, ftype):
-    """(C, 4, 3) gradient of each frame's distance w.r.t. its 4 vertices.
+    """(C, 4, d) gradient of each frame's distance w.r.t. its 4 vertices.
     Frames are independent, so the gradient of the summed distances is the
     per-frame gradient (the JAX package's vmap(grad))."""
     return torch.func.grad(lambda v: frame_distance(v, ftype).sum())(verts)
@@ -180,6 +184,11 @@ def frame_contact_weights(verts, ftype):
     v0, v1, v2, v3 = (verts[..., i, :] for i in range(4))
     one = verts.new_ones(verts.shape[:-2])
     zero = torch.zeros_like(one)
+    if verts.shape[-1] == 2:
+        t = _pe_param(v0, v1, v2)
+        w_pe = torch.stack([one, -(1 - t), -t, zero], dim=-1)
+        w_pp = torch.stack([one, -one, zero, zero], dim=-1)
+        return torch.where((ftype == PE)[..., None], w_pe, w_pp)
     w_pt = torch.cat([one[..., None], -_pt_bary(v0, v1, v2, v3)], dim=-1)
     s, t = _ee_params(v0, v1, v2, v3)
     w_ee = torch.stack([1 - s, s, -(1 - t), -t], dim=-1)

@@ -36,8 +36,9 @@ _MESH_FIELDS = (
 
 
 def mesh_from_numpy(d: Mapping, dtype, device) -> MeshData:
-    if d.get("shell") or d.get("rod") or d.get("dim", 3) != 3:
-        raise NotImplementedError("only 3D tet solids are ported")
+    """A 3D tet or 2D triangle solid (shells and rods are not ported)."""
+    if d.get("shell") or d.get("rod") or d.get("dim", 3) not in (2, 3):
+        raise NotImplementedError("only tet and triangle solids are ported")
     return mesh_from_arrays(
         **{k: d[k] for k in _MESH_FIELDS}, models=tuple(d["models"]),
         dtype=dtype, device=device,

@@ -5,7 +5,12 @@
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 // and loaded with ctypes. Every entry point launches on the stream it is
 // given, allocates nothing, and returns cudaGetLastError() of its launch.
-// Each kernel is a template over float and double.
+// Each kernel is a template over float and double. K1 and K3 are templates
+// over the element's shape too, with two instances each: 3D linear tets
+// (k = 4 corners, d = 3, N = 6 stretch values; entry points without a shape
+// suffix) and 2D linear triangles (k = 3, d = 2, N = 3; entry points
+// _k3d2 and _n3). The tet instance is the same code as before the shape
+// became a parameter, so its sums run in the same order.
 //
 // K1 element_apply  replaces the gather/apply half of
 //     mixedfem_tpu/ops/brick.py:_matvec_kernel (via _matvec_call,
@@ -15,9 +20,11 @@
 //       y_e  = Gw_e^T q + (M_e (x) I3) pe             (4 x 3, written out)
 //     Bound: bytes. Gw (72), mass (16), T (4 ints) and y_e (12) per element,
 //     ~42 MB at 100k tets f32, ~12.5 us at 3.35 TB/s; 384 flop/element is
-//     negligible. Design: the per-element rows are streamed once, p and the
-//     mask are gathered (they fit in L2), the sums stay in registers, and the
-//     per-corner rows go to K2 for a deterministic vertex sum (no atomics).
+//     negligible. Triangles (the instance <3, 2, 3>): Gw (18), mass (9), T
+//     (3 ints), y_e (6), ~14.4 MB at 100k triangles f32, ~4.3 us. Design:
+//     the per-element rows are streamed once, p and the mask are gathered
+//     (they fit in L2), the sums stay in registers, and the per-corner rows
+//     go to K2 for a deterministic vertex sum (no atomics).
 //
 // K2 segment_sum  replaces mixedfem_tpu/ops/brick.py:_scatter_kernel (via
 //     _scatter_call, brick_scatter) and, with K1, the scatter half of
@@ -52,7 +59,11 @@
 //     written row-major (E, 6, 4, 3) directly, so no transpose is needed.
 //     Bound: bytes. D (54), dphi (12), Hs (36), vol (1) read and G, Gw
 //     (144) written per element, ~99 MB at 100k tets f32, ~29.5 us at
-//     3.35 TB/s; ~1.3 kflop/element is negligible. The first design (one
+//     3.35 TB/s; ~1.3 kflop/element is negligible. Triangles (N = 3, k = 3,
+//     d = 2): D (12), dphi (6), Hs (9), vol (1), G and Gw (36), ~25.6 MB at
+//     100k triangles f32, ~7.6 us; a tile is 3 TE threads, and a tile's
+//     spans stay 16-byte aligned (TE is a multiple of 4), so the same copy
+//     units and element-copy tails serve both shapes. The first design (one
 //     thread per element, 72 sums in registers, 144 stores at a 288-byte
 //     stride that used 4 of each 32-byte sector) took 270.95 us on an
 //     NVIDIA H100 80GB HBM3 at 700 W. Design: the TPU kernel's staging,
@@ -158,44 +169,47 @@ constexpr int kSegWarps = 4;
 constexpr int kTile = 32;
 constexpr int kMaxWidth = 64;
 
-template <typename T>
+// K1 for elements of K corners in DIM dimensions with N stretch values:
+// one thread per element
+template <typename T, int K, int DIM, int N>
 __global__ void element_apply_kernel(const int* __restrict__ tets,
                                      const T* __restrict__ gw,
                                      const T* __restrict__ mass,
                                      const T* __restrict__ free_mask,
                                      const T* __restrict__ p,
                                      T* __restrict__ out, int n_elem) {
+  constexpr int KD = K * DIM;
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= n_elem) return;
-  T pe[12];
+  T pe[KD];
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const int v = tets[4 * e + c];
+  for (int c = 0; c < K; ++c) {
+    const int v = tets[K * e + c];
     const T f = free_mask[v];
 #pragma unroll
-    for (int r = 0; r < 3; ++r) pe[3 * c + r] = f * p[3 * v + r];
+    for (int r = 0; r < DIM; ++r) pe[DIM * c + r] = f * p[DIM * v + r];
   }
-  const T* g = gw + 72 * static_cast<size_t>(e);
-  T q[6];
+  const T* g = gw + N * KD * static_cast<size_t>(e);
+  T q[N];
 #pragma unroll
-  for (int i = 0; i < 6; ++i) {
+  for (int i = 0; i < N; ++i) {
     T acc = T(0);
 #pragma unroll
-    for (int a = 0; a < 12; ++a) acc += g[12 * i + a] * pe[a];
+    for (int a = 0; a < KD; ++a) acc += g[KD * i + a] * pe[a];
     q[i] = acc;
   }
-  const T* m = mass + 16 * static_cast<size_t>(e);
-  T* y = out + 12 * static_cast<size_t>(e);
+  const T* m = mass + K * K * static_cast<size_t>(e);
+  T* y = out + KD * static_cast<size_t>(e);
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
+  for (int c = 0; c < K; ++c) {
 #pragma unroll
-    for (int r = 0; r < 3; ++r) {
-      const int a = 3 * c + r;
+    for (int r = 0; r < DIM; ++r) {
+      const int a = DIM * c + r;
       T acc = T(0);
 #pragma unroll
-      for (int i = 0; i < 6; ++i) acc += g[12 * i + a] * q[i];
+      for (int i = 0; i < N; ++i) acc += g[KD * i + a] * q[i];
 #pragma unroll
-      for (int l = 0; l < 4; ++l) acc += m[4 * c + l] * pe[3 * l + r];
+      for (int l = 0; l < K; ++l) acc += m[K * c + l] * pe[DIM * l + r];
       y[a] = acc;
     }
   }
@@ -304,10 +318,17 @@ __device__ __forceinline__ void lane_segment_sum(SEG_PARAMS) {
 SEG_KERNELS(segment_sum_kernel)
 SEG_KERNELS(banded_sum_kernel)
 
-// K3: values per element of D, dphi, Hs and of G (and Gw); a tile's spans
+// K3's element shape: K corners in DIM dimensions, N stretch values, and
+// the values per element of D, dphi, Hs and of G (and Gw); a tile's spans
 // lie in shared memory in the order D, dphi, Hs, vol, G, Gw
-constexpr int kD = 54, kPhi = 12, kHs = 36, kG = 72;
-constexpr int kK3Vals = kD + kPhi + kHs + 1 + 2 * kG;
+template <int K_, int DIM_, int N_>
+struct K3Shape {
+  static constexpr int K = K_, DIM = DIM_, N = N_;
+  static constexpr int D = N * DIM * DIM, Phi = K * DIM, Hs = N * N, G = N * K * DIM;
+  static constexpr int Vals = D + Phi + Hs + 1 + 2 * G;
+};
+using K3Tet = K3Shape<4, 3, 6>;  // 54, 12, 36 and 72 values
+using K3Tri = K3Shape<3, 2, 3>;  // 12, 6, 9 and 18 values
 constexpr int kK3Tile = 32;  // elements per block, by chip_smoke.py's sweep
 
 template <int B>
@@ -353,68 +374,70 @@ inline int copy_unit(const void* p) {
   return a % 16 == 0 ? 16 : a % 8 == 0 ? 8 : 4;
 }
 
-// one block per tile of TE elements, a thread per (element, corner)
-template <typename T, int TE>
-__global__ void __launch_bounds__(4 * TE) contract_G_Gw_kernel(
+// one block per tile of TE elements of shape S, a thread per (element,
+// corner)
+template <typename T, int TE, typename S>
+__global__ void __launch_bounds__(S::K * TE) contract_G_Gw_kernel(
     const T* __restrict__ D, const T* __restrict__ dphi,
     const T* __restrict__ Hs, const T* __restrict__ vol, T* __restrict__ G,
     T* __restrict__ Gw, int n_elem, K3Units u) {
+  constexpr int K = S::K, DIM = S::DIM, N = S::N;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sD = reinterpret_cast<T*>(smem_raw);
-  T* sPhi = sD + kD * TE;
-  T* sHs = sPhi + kPhi * TE;
-  T* sVol = sHs + kHs * TE;
+  T* sPhi = sD + S::D * TE;
+  T* sHs = sPhi + S::Phi * TE;
+  T* sVol = sHs + S::Hs * TE;
   T* sG = sVol + TE;
-  T* sGw = sG + kG * TE;
+  T* sGw = sG + S::G * TE;
   const size_t e0 = static_cast<size_t>(blockIdx.x) * TE;
   const int n = min(TE, n_elem - static_cast<int>(e0));
   const int sz = static_cast<int>(sizeof(T));
-  copy_span<T, true>(sD, D + kD * e0, kD * n * sz, u.D);
-  copy_span<T, true>(sPhi, dphi + kPhi * e0, kPhi * n * sz, u.dphi);
-  copy_span<T, true>(sHs, Hs + kHs * e0, kHs * n * sz, u.Hs);
+  copy_span<T, true>(sD, D + S::D * e0, S::D * n * sz, u.D);
+  copy_span<T, true>(sPhi, dphi + S::Phi * e0, S::Phi * n * sz, u.dphi);
+  copy_span<T, true>(sHs, Hs + S::Hs * e0, S::Hs * n * sz, u.Hs);
   copy_span<T, true>(sVol, vol + e0, n * sz, u.vol);
   cp_async_commit();
   cp_async_wait_all();
   __syncthreads();
-  const int el = threadIdx.x >> 2, k = threadIdx.x & 3;
+  const int el = threadIdx.x / K, k = threadIdx.x % K;
   if (el < n) {
-    const T* d = sD + kD * el;
-    T ph[3];
+    const T* d = sD + S::D * el;
+    T ph[DIM];
 #pragma unroll
-    for (int c = 0; c < 3; ++c) ph[c] = sPhi[kPhi * el + 3 * k + c];
-    T g[18];
-    T* go = sG + kG * el + 3 * k;
+    for (int c = 0; c < DIM; ++c) ph[c] = sPhi[S::Phi * el + DIM * k + c];
+    T g[N * DIM];
+    T* go = sG + S::G * el + DIM * k;
 #pragma unroll
-    for (int i = 0; i < 6; ++i) {
+    for (int i = 0; i < N; ++i) {
 #pragma unroll
-      for (int r = 0; r < 3; ++r) {
+      for (int r = 0; r < DIM; ++r) {
         T acc = T(0);
 #pragma unroll
-        for (int c = 0; c < 3; ++c) acc += d[9 * i + 3 * r + c] * ph[c];
-        g[3 * i + r] = acc;
-        go[12 * i + r] = acc;
+        for (int c = 0; c < DIM; ++c) acc += d[DIM * DIM * i + DIM * r + c] * ph[c];
+        g[DIM * i + r] = acc;
+        go[K * DIM * i + r] = acc;
       }
     }
     const T sq = sqrt(sVol[el]);
-    const T* h = sHs + kHs * el;
-    T* wo = sGw + kG * el + 3 * k;
+    const T* h = sHs + S::Hs * el;
+    T* wo = sGw + S::G * el + DIM * k;
 #pragma unroll
-    for (int i = 0; i < 6; ++i) {
-      T hi[6];
+    for (int i = 0; i < N; ++i) {
+      T hi[N];
 #pragma unroll
-      for (int j = 0; j < 6; ++j) hi[j] = h[6 * i + j];
+      for (int j = 0; j < N; ++j) hi[j] = h[N * i + j];
 #pragma unroll
-      for (int r = 0; r < 3; ++r) {
+      for (int r = 0; r < DIM; ++r) {
         T acc = T(0);
 #pragma unroll
-        for (int j = 0; j < 6; ++j) acc += hi[j] * g[3 * j + r];
-        wo[12 * i + r] = sq * acc;
+        for (int j = 0; j < N; ++j) acc += hi[j] * g[DIM * j + r];
+        wo[K * DIM * i + r] = sq * acc;
       }
     }
   }
   __syncthreads();
-  copy_span<T, false>(G + kG * e0, sG, kG * n * sz, u.G);
-  copy_span<T, false>(Gw + kG * e0, sGw, kG * n * sz, u.Gw);
+  copy_span<T, false>(G + S::G * e0, sG, S::G * n * sz, u.G);
+  copy_span<T, false>(Gw + S::G * e0, sGw, S::G * n * sz, u.Gw);
 }
 
 // K5's planes: the used offsets, ascending, as flat lattice shifts and as
@@ -693,32 +716,42 @@ int launch_segment_sum(bool banded, const int* row_ptr, const int* slots,
   return static_cast<int>(err);
 }
 
-template <typename T, int TE>
+template <typename T, int TE, typename S>
 cudaError_t launch_contract(const T* D, const T* dphi, const T* Hs, const T* vol,
                             T* G, T* Gw, int n_elem, cudaStream_t s) {
-  auto kernel = contract_G_Gw_kernel<T, TE>;
-  const size_t smem = static_cast<size_t>(kK3Vals) * TE * sizeof(T);
+  auto kernel = contract_G_Gw_kernel<T, TE, S>;
+  const size_t smem = static_cast<size_t>(S::Vals) * TE * sizeof(T);
   cudaError_t err = cudaSuccess;
   if (smem > 48 * 1024)  // opt in above the default 48 KB
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const K3Units u{copy_unit(D), copy_unit(dphi), copy_unit(Hs), copy_unit(vol), copy_unit(G), copy_unit(Gw)};
-  kernel<<<(n_elem + TE - 1) / TE, 4 * TE, smem, s>>>(D, dphi, Hs, vol, G, Gw, n_elem, u);
+  kernel<<<(n_elem + TE - 1) / TE, S::K * TE, smem, s>>>(D, dphi, Hs, vol, G, Gw, n_elem, u);
   return cudaGetLastError();
 }
 
-// K3 in tiles of `tile` elements (16, 32 or 64)
-template <typename T>
+// K3 for elements of shape S in tiles of `tile` elements (16, 32 or 64)
+template <typename T, typename S>
 int launch_contract_tile(const T* D, const T* dphi, const T* Hs, const T* vol,
                          T* G, T* Gw, int n_elem, int tile, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_elem <= 0) return static_cast<int>(cudaSuccess);
   switch (tile) {
-    case 16: return static_cast<int>(launch_contract<T, 16>(D, dphi, Hs, vol, G, Gw, n_elem, s));
-    case 32: return static_cast<int>(launch_contract<T, 32>(D, dphi, Hs, vol, G, Gw, n_elem, s));
-    case 64: return static_cast<int>(launch_contract<T, 64>(D, dphi, Hs, vol, G, Gw, n_elem, s));
+    case 16: return static_cast<int>(launch_contract<T, 16, S>(D, dphi, Hs, vol, G, Gw, n_elem, s));
+    case 32: return static_cast<int>(launch_contract<T, 32, S>(D, dphi, Hs, vol, G, Gw, n_elem, s));
+    case 64: return static_cast<int>(launch_contract<T, 64, S>(D, dphi, Hs, vol, G, Gw, n_elem, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// K1 for elements of K corners in DIM dimensions with N stretch values
+template <typename T, int K, int DIM, int N>
+int launch_element_apply(const int* tets, const T* gw, const T* mass, const T* free_mask,
+                         const T* p, T* out, int n_elem, void* stream) {
+  if (n_elem > 0)
+    element_apply_kernel<T, K, DIM, N><<<blocks_for(n_elem), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        tets, gw, mass, free_mask, p, out, n_elem);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // K5 over the planes of `used` (bit o for plane o): the unrolled path for
@@ -799,23 +832,32 @@ const char* mf_error_string(int code) {
   int mf_element_apply_##SFX(const int* tets, const T* gw, const T* mass,     \
                              const T* free_mask, const T* p, T* out,          \
                              int n_elem, void* stream) {                      \
-    if (n_elem > 0)                                                            \
-      element_apply_kernel<T><<<blocks_for(n_elem), kThreads, 0,              \
-                                static_cast<cudaStream_t>(stream)>>>(         \
-          tets, gw, mass, free_mask, p, out, n_elem);                          \
-    return static_cast<int>(cudaGetLastError());                               \
+    return launch_element_apply<T, 4, 3, 6>(tets, gw, mass, free_mask, p, out, \
+                                            n_elem, stream);                  \
+  }                                                                            \
+  int mf_element_apply_k3d2_##SFX(const int* tris, const T* gw, const T* mass, \
+                                  const T* free_mask, const T* p, T* out,     \
+                                  int n_elem, void* stream) {                 \
+    return launch_element_apply<T, 3, 2, 3>(tris, gw, mass, free_mask, p, out, \
+                                            n_elem, stream);                  \
   }                                                                            \
   int mf_contract_G_Gw_##SFX(const T* D, const T* dphi, const T* Hs,          \
                              const T* vol, T* G, T* Gw, int n_elem,           \
                              void* stream) {                                  \
-    return launch_contract_tile<T>(D, dphi, Hs, vol, G, Gw, n_elem, kK3Tile,  \
-                                   stream);                                   \
+    return launch_contract_tile<T, K3Tet>(D, dphi, Hs, vol, G, Gw, n_elem,    \
+                                          kK3Tile, stream);                   \
+  }                                                                            \
+  int mf_contract_G_Gw_n3_##SFX(const T* D, const T* dphi, const T* Hs,       \
+                                const T* vol, T* G, T* Gw, int n_elem,        \
+                                void* stream) {                               \
+    return launch_contract_tile<T, K3Tri>(D, dphi, Hs, vol, G, Gw, n_elem,    \
+                                          kK3Tile, stream);                   \
   }                                                                            \
   int mf_contract_G_Gw_tile_##SFX(const T* D, const T* dphi, const T* Hs,     \
                                   const T* vol, T* G, T* Gw, int n_elem,      \
                                   int tile, void* stream) {                   \
-    return launch_contract_tile<T>(D, dphi, Hs, vol, G, Gw, n_elem, tile,     \
-                                   stream);                                   \
+    return launch_contract_tile<T, K3Tet>(D, dphi, Hs, vol, G, Gw, n_elem,    \
+                                          tile, stream);                      \
   }                                                                            \
   int mf_segment_sum_##SFX(const int* row_ptr, const int* slots,              \
                            const int* piece_ptr, const int* seg_pieces,       \

@@ -35,9 +35,11 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
-# launches per kernel (segment_sum and banded_sum counted per row width m);
-# a caller clears it before a run and reads it after, to show the run went
-# through the kernels
+# launches per kernel (segment_sum and banded_sum counted per row width m,
+# element_apply and contract_G_Gw per element shape: the tet instances
+# under the plain names, the triangle instances as element_apply_k3d2 and
+# contract_G_Gw_n3); a caller clears it before a run and reads it after, to
+# show the run went through the kernels
 LAUNCHES: collections.Counter = collections.Counter()
 
 _lib = None
@@ -89,16 +91,17 @@ def _load():
     lib = ctypes.CDLL(str(build()))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     for suffix in ("f32", "f64"):
-        getattr(lib, f"mf_element_apply_{suffix}").argtypes = [vp] * 6 + [i32, vp]
-        getattr(lib, f"mf_contract_G_Gw_{suffix}").argtypes = [vp] * 6 + [i32, vp]
+        for name in ("element_apply", "element_apply_k3d2", "contract_G_Gw",
+                     "contract_G_Gw_n3"):
+            getattr(lib, f"mf_{name}_{suffix}").argtypes = [vp] * 6 + [i32, vp]
         getattr(lib, f"mf_contract_G_Gw_tile_{suffix}").argtypes = [vp] * 6 + [i32] * 2 + [vp]
         for name in ("segment_sum", "banded_sum"):
             getattr(lib, f"mf_{name}_{suffix}").argtypes = [vp] * 7 + [i32] * 4 + [vp]
         getattr(lib, f"mf_stencil_apply_{suffix}").argtypes = [vp] * 4 + [i32] * 4 + [vp]
         getattr(lib, f"mf_stencil_assemble_{suffix}").argtypes = [vp] * 6 + [i32] * 6 + [vp]
-        for name in ("element_apply", "segment_sum", "contract_G_Gw",
-                     "contract_G_Gw_tile", "banded_sum", "stencil_apply",
-                     "stencil_assemble"):
+        for name in ("element_apply", "element_apply_k3d2", "segment_sum",
+                     "contract_G_Gw", "contract_G_Gw_n3", "contract_G_Gw_tile",
+                     "banded_sum", "stencil_apply", "stencil_assemble"):
             getattr(lib, f"mf_{name}_{suffix}").restype = i32
     lib.mf_error_string.argtypes = [i32]
     lib.mf_error_string.restype = ctypes.c_char_p
@@ -138,23 +141,41 @@ def _launch(fn_name: str, suffix: str, *args) -> None:
         raise RuntimeError(f"CUDA kernel {fn_name} failed: {msg} ({code})")
 
 
+# the element shapes (corners k, dimension d) -> (stretch values N, K1's
+# name, K3's name): tets and triangles
+SHAPES = {
+    (4, 3): (6, "element_apply", "contract_G_Gw"),
+    (3, 2): (3, "element_apply_k3d2", "contract_G_Gw_n3"),
+}
+
+
+def _shape(k: int, d: int):
+    if (k, d) not in SHAPES:
+        raise ValueError(f"elements of {k} corners in {d} dimensions: the "
+                         f"kernels have instances for {sorted(SHAPES)}")
+    return SHAPES[(k, d)]
+
+
 def element_apply(T, Gw, mass, free_mask, p) -> torch.Tensor:
-    """K1: per-corner rows (E, 4, 3) of (M_e (x) I + Gw_e^T Gw_e) P p_e."""
+    """K1: per-corner rows (E, k, d) of (M_e (x) I + Gw_e^T Gw_e) P p_e, for
+    tets (k=4, d=3, Gw (E, 6, 4, 3)) or triangles (k=3, d=2, Gw (E, 3, 3,
+    2))."""
     sfx = _float_dtype(p)
     dev, dt = p.device, p.dtype
-    E = T.shape[0]
-    nv = p.shape[0]
-    _check(T, "T", (E, 4), torch.int32, dev)
-    _check(Gw, "Gw", (E, 6, 4, 3), dt, dev)
-    _check(mass, "mass", (E, 4, 4), dt, dev)
+    E, k = T.shape[0], T.shape[-1]
+    nv, d = p.shape[0], p.shape[-1]
+    N, name, _ = _shape(k, d)
+    _check(T, "T", (E, k), torch.int32, dev)
+    _check(Gw, "Gw", (E, N, k, d), dt, dev)
+    _check(mass, "mass", (E, k, k), dt, dev)
     _check(free_mask, "free_mask", (nv,), dt, dev)
-    _check(p, "p", (nv, 3), dt, dev)
-    out = torch.empty((E, 4, 3), dtype=dt, device=dev)
+    _check(p, "p", (nv, d), dt, dev)
+    out = torch.empty((E, k, d), dtype=dt, device=dev)
     _launch(
-        "element_apply", sfx, T.data_ptr(), Gw.data_ptr(), mass.data_ptr(),
+        name, sfx, T.data_ptr(), Gw.data_ptr(), mass.data_ptr(),
         free_mask.data_ptr(), p.data_ptr(), out.data_ptr(), E,
     )
-    LAUNCHES["element_apply"] += 1
+    LAUNCHES[name] += 1
     return out
 
 
@@ -212,34 +233,40 @@ CONTRACT_TILES = (16, 32, 64)
 
 
 def contract_G_Gw(D, dphi, Hs, vols):
-    """K3: G = D : dphi and Gw = sqrt(vol) Hs G, both (E, 6, 4, 3)."""
+    """K3: G = D : dphi and Gw = sqrt(vol) Hs G, both (E, N, k, d), for
+    tets (D (E, 6, 3, 3), dphi (E, 4, 3), Hs (E, 6, 6)) or triangles (D
+    (E, 3, 2, 2), dphi (E, 3, 2), Hs (E, 3, 3))."""
     return _contract_G_Gw(D, dphi, Hs, vols, None)
 
 
 def contract_G_Gw_tile(D, dphi, Hs, vols, tile: int):
-    """K3 in tiles of `tile` elements, one of CONTRACT_TILES."""
+    """K3's tet instance in tiles of `tile` elements, one of
+    CONTRACT_TILES."""
     if tile not in CONTRACT_TILES:
         raise ValueError(f"tile {tile}: K3 takes one of {CONTRACT_TILES}")
+    if tuple(dphi.shape[1:]) != (4, 3):
+        raise ValueError("K3's tile sizes are offered for tets only")
     return _contract_G_Gw(D, dphi, Hs, vols, tile)
 
 
 def _contract_G_Gw(D, dphi, Hs, vols, tile):
     sfx = _float_dtype(D)
     dev, dt = D.device, D.dtype
-    E = D.shape[0]
-    _check(D, "D", (E, 6, 3, 3), dt, dev)
-    _check(dphi, "dphi", (E, 4, 3), dt, dev)
-    _check(Hs, "Hs", (E, 6, 6), dt, dev)
+    E, k, d = dphi.shape[0], dphi.shape[1], dphi.shape[-1]
+    N, _, name = _shape(k, d)
+    _check(D, "D", (E, N, d, d), dt, dev)
+    _check(dphi, "dphi", (E, k, d), dt, dev)
+    _check(Hs, "Hs", (E, N, N), dt, dev)
     _check(vols, "vols", (E,), dt, dev)
-    G = torch.empty((E, 6, 4, 3), dtype=dt, device=dev)
-    Gw = torch.empty((E, 6, 4, 3), dtype=dt, device=dev)
+    G = torch.empty((E, N, k, d), dtype=dt, device=dev)
+    Gw = torch.empty((E, N, k, d), dtype=dt, device=dev)
     args = (D.data_ptr(), dphi.data_ptr(), Hs.data_ptr(), vols.data_ptr(),
             G.data_ptr(), Gw.data_ptr(), E)
     if tile is None:
-        _launch("contract_G_Gw", sfx, *args)
+        _launch(name, sfx, *args)
     else:
         _launch("contract_G_Gw_tile", sfx, *args, tile)
-    LAUNCHES["contract_G_Gw"] += 1
+    LAUNCHES[name] += 1
     return G, Gw
 
 

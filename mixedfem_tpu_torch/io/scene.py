@@ -1,5 +1,6 @@
 """Scene loading: the reference's JSON scene vocabulary -> Simulation (port
-of mixedfem_tpu/io/scene.py, 3D tets).
+of mixedfem_tpu/io/scene.py): 3D tet meshes (.mesh) and 2D triangle meshes
+(.obj, z-truncated, not normalized, with dim=2).
 
 The JSON schema is the JAX package's: dt, body_force, time_integrator,
 linear_solver, max_newton_iterations, max_linesearch_iterations,
@@ -14,14 +15,15 @@ mixed-collision (IPC contact), as in the JAX package.
 
 On the card the loader mirrors the JAX package's accelerator choices:
 elements in banded order (sorted by min vertex id) and a banded plan for
-scenes of 2000 tets or more, so every assembly and CG matvec goes through
-kernel K4; a two-level coarse space (target 48) for such scenes with the
-'pcg' solver. On the CPU the scene keeps its natural element order.
-2D scenes and solvers other than pcg / pcg-block-jacobi raise
+scenes of 2000 elements or more, so every assembly and CG matvec goes
+through kernel K4; a two-level coarse space (target 48) for such scenes
+with the 'pcg' solver. On the CPU the scene keeps its natural element
+order. Solvers other than pcg / pcg-block-jacobi raise
 NotImplementedError while the scene loads.
 
 With contact, Simulation.step runs the host broadphase once per step
-(collision/broadphase.py, under the profiler span `scene.broadphase`) with
+(collision/broadphase.py: candidates_3d over the surface, candidates_2d
+over the boundary edges; under the profiler span `scene.broadphase`) with
 a margin that covers the expected motion, and re-runs the step from the
 saved pre-step state with a wider margin when the step moved a vertex
 further than that.
@@ -58,8 +60,8 @@ from mixedfem_tpu_torch.solvers.factory import resolve_solver
 from mixedfem_tpu_torch.utils.skinning import apply_skinning, embed_in_tets
 from mixedfem_tpu_torch.variables.mixed_collision import contact_frames
 
-# scenes of this many tets or more get the banded plan (on the card) and
-# the two-level coarse space, as in the JAX package
+# scenes of this many elements or more get the banded plan (on the card)
+# and the two-level coarse space, as in the JAX package
 BANDED_MIN_TETS = 2000
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
@@ -133,10 +135,14 @@ class Simulation:
         motion = max(motion, min_motion, self.config.dhat)
         margin = 1.1 * self.config.dhat + 2.0 * motion
 
-        F_srf = self.mesh.F_srf.cpu().numpy()
-        frames, types = bp.candidates_3d(
-            V, F_srf, self.mesh.E_srf.cpu().numpy(),
-            np.unique(F_srf.reshape(-1)), margin)
+        E_srf = self.mesh.E_srf.cpu().numpy()
+        if self.dim == 3:
+            F_srf = self.mesh.F_srf.cpu().numpy()
+            frames, types = bp.candidates_3d(
+                V, F_srf, E_srf, np.unique(F_srf.reshape(-1)), margin)
+        else:
+            frames, types = bp.candidates_2d(
+                V, E_srf, np.unique(E_srf.reshape(-1)), margin)
         cap = (bp.capacity(len(frames), self.config.max_contact_frames)
                if len(frames) else 0)
         f, t, m = bp.pad_candidates(frames, types, cap)
@@ -186,9 +192,20 @@ def _resolve_path(path: str, scene_dir: str) -> str:
 
 
 def _check_scene(config: SimConfig, dim: int) -> None:
-    if dim != 3:
-        raise NotImplementedError("2D scenes (dim=2)")
+    if dim not in (2, 3):
+        raise ValueError(f"scenes of dimension {dim}")
     check_supported(config)
+
+
+def _load_object_mesh(path: str, dim: int, normalize: bool):
+    """An object's (V, T): a .obj of triangles, its unreferenced vertices
+    dropped and z truncated (2D; never normalized), or a .mesh of tets,
+    scaled by its largest coordinate when `normalize` (3D)."""
+    if dim == 2:
+        V, T = mesh_io.remove_unreferenced(*mesh_io.read_obj(path))
+        return V[:, :2].copy(), T
+    V, T, _ = mesh_io.read_mesh(path)
+    return (V / V.max() if normalize else V), T
 
 
 def load_scene(
@@ -261,10 +278,8 @@ def load_scene(
 
     offset_v = 0
     for obj in args.get("objects", []):
-        path = _resolve_path(obj["path"], scene_dir)
-        V, T, _ = mesh_io.read_mesh(path)
-        if obj.get("normalize", True):
-            V = V / V.max()
+        V, T = _load_object_mesh(_resolve_path(obj["path"], scene_dir), dim,
+                                 obj.get("normalize", True))
         V = V + np.asarray(obj.get("offset", (0.0, 0.0, 0.0)))[:dim]
         if "transformation" in obj:
             Tm = np.asarray(obj["transformation"], np.float64).reshape(dim, dim)

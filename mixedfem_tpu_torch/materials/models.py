@@ -2,14 +2,15 @@
 mixedfem_tpu/materials/models.py).
 
 Each of the six models is a scalar energy density psi(s, mu, la) of the
-sym-vec stretch s = [S00,S11,S22,S01,S02,S12]; gradients and Hessians come
-from torch.func (grad / hessian under vmap). Energy forms:
+sym-vec stretch s = [S00,S11,S22,S01,S02,S12] (3D) or [S00,S11,S01] (2D);
+gradients and Hessians come from torch.func (grad / hessian under vmap).
+Energy forms, d the dimension:
   ARAP   : mu/2 |S - I|_F^2
-  Corot  : la/2 (trS - 3)^2 + mu |S - I|_F^2
+  Corot  : la/2 (trS - d)^2 + mu |S - I|_F^2
   FixedCorot: la/2 (det S - 1)^2 + mu |S - I|_F^2
-  SNH    : mu (1 - det S) + la/2 (1 - det S)^2 + mu/2 (|S|^2 - 3)
-  Neohookean: -mu log(det S) + la/2 log^2(det S) + mu/2 (|S|^2 - 3)
-  Fung (c=4): mu/2 (e^{c(|S|^2-3)/2} - 1) + mu/2 (|S|^2 - 3)
+  SNH    : mu (1 - det S) + la/2 (1 - det S)^2 + mu/2 (|S|^2 - d)
+  Neohookean: -mu log(det S) + la/2 log^2(det S) + mu/2 (|S|^2 - d)
+  Fung (c=4): mu/2 (e^{c(|S|^2-d)/2} - 1) + mu/2 (|S|^2 - d)
               + la/2 ((mu + c mu)/la + 1 - det S)^2
 The log guard uses the double-where pattern so derivatives stay finite;
 infeasible states (det <= 0) get a large finite energy.
@@ -43,7 +44,10 @@ def model_index(name: str) -> int:
 
 
 def _invariants_s(s):
-    """(tr, |S|^2, det, d) of a 3D sym-vec s (6,)."""
+    """(tr, |S|^2, det, d) of a sym-vec s of length 6 (3D) or 3 (2D)."""
+    if s.shape[-1] == 3:
+        return (s[0] + s[1], s[0] ** 2 + s[1] ** 2 + 2.0 * s[2] ** 2,
+                s[0] * s[1] - s[2] ** 2, 2.0)
     tr = s[0] + s[1] + s[2]
     n2 = s[0] ** 2 + s[1] ** 2 + s[2] ** 2 + 2.0 * (
         s[3] ** 2 + s[4] ** 2 + s[5] ** 2
@@ -60,6 +64,8 @@ def _invariants_s(s):
 
 def _norm_smi2(s):
     """|S - I|_F^2 in sym-vec form."""
+    if s.shape[-1] == 3:
+        return (s[0] - 1.0) ** 2 + (s[1] - 1.0) ** 2 + 2.0 * s[2] ** 2
     return (s[0] - 1.0) ** 2 + (s[1] - 1.0) ** 2 + (s[2] - 1.0) ** 2 + 2.0 * (
         s[3] ** 2 + s[4] ** 2 + s[5] ** 2
     )
@@ -130,15 +136,15 @@ def _dispatch(transform, models, s, mu, la, model_id):
 
 
 def psi_s_all(s, mu, la, model_id, models):
-    """(E, 6) stretches -> (E,) energy densities."""
+    """(E, N) stretches -> (E,) energy densities."""
     return _dispatch(vmap, models, s, mu, la, model_id)
 
 
 def grad_s_all(s, mu, la, model_id, models):
-    """(E, 6) -> (E, 6) gradients dpsi/ds."""
+    """(E, N) -> (E, N) gradients dpsi/ds."""
     return _dispatch(lambda f: vmap(grad(f)), models, s, mu, la, model_id)
 
 
 def hess_s_all(s, mu, la, model_id, models):
-    """(E, 6) -> (E, 6, 6) Hessians d2psi/ds2."""
+    """(E, N) -> (E, N, N) Hessians d2psi/ds2."""
     return _dispatch(lambda f: vmap(hessian(f)), models, s, mu, la, model_id)

@@ -1,10 +1,11 @@
-"""Host-side (numpy, f64) linear tet discretization precompute: a copy of
-the tet part of mixedfem_tpu/mesh/discretization.py, with its surface
-extraction (boundary_facets, edges).
+"""Host-side (numpy, f64) linear tet and triangle discretization
+precompute: a copy of the solid part of mixedfem_tpu/mesh/discretization.py,
+with its surface extraction (boundary_facets, edges).
 
 Conventions (identical to the reference):
 - F_e = sum_k x[T[e,k]] dphi_k/dX^T, i.e. F[r,c] = sum_k x_k[r] dphidX[k,c].
-- volumes are |tet volume|.
+- volumes are |tet volume| in 3D and DOUBLE triangle areas in 2D (the
+  reference weights every 2D element quantity by 2A).
 """
 
 from __future__ import annotations
@@ -17,6 +18,15 @@ def tet_volumes(V: np.ndarray, T: np.ndarray) -> np.ndarray:
     a, b, c, d = V[T[:, 0]], V[T[:, 1]], V[T[:, 2]], V[T[:, 3]]
     M = np.stack([b - a, c - a, d - a], axis=-2)
     return np.abs(np.linalg.det(M)) / 6.0
+
+
+def tri_double_areas(V: np.ndarray, T: np.ndarray) -> np.ndarray:
+    """Double triangle areas (igl::doublearea)."""
+    a, b, c = V[T[:, 0]], V[T[:, 1]], V[T[:, 2]]
+    e1, e2 = b - a, c - a
+    if V.shape[1] == 2:
+        return np.abs(e1[:, 0] * e2[:, 1] - e1[:, 1] * e2[:, 0])
+    return np.linalg.norm(np.cross(e1, e2), axis=-1)
 
 
 def tet_dphidX(V: np.ndarray, T: np.ndarray) -> np.ndarray:
@@ -33,26 +43,45 @@ def tet_dphidX(V: np.ndarray, T: np.ndarray) -> np.ndarray:
     return dphi
 
 
+def tri2d_dphidX(V: np.ndarray, T: np.ndarray) -> np.ndarray:
+    """(E, 3, 2) shape-function gradients for linear 2D triangles."""
+    a = V[T[:, 0]]
+    Dm = np.stack([V[T[:, 1]] - a, V[T[:, 2]] - a], axis=-1)  # (E, 2, 2)
+    Dmi = np.linalg.inv(Dm)
+    dphi = np.empty((len(T), 3, 2), dtype=V.dtype)
+    dphi[:, 1:, :] = Dmi
+    dphi[:, 0, :] = -Dmi.sum(axis=1)
+    return dphi
+
+
 def consistent_mass_coeff(vols: np.ndarray, density: np.ndarray, k: int = 4):
-    """(E, k, k) per-element consistent mass blocks of linear tets (scalar
-    per vertex pair; the d-dim block is coeff * I_d):
-    M_kl = rho * vol * (1 + delta_kl) / 20."""
-    if k != 4:
-        raise NotImplementedError("only linear tets (k=4) are ported")
+    """(E, k, k) per-element consistent mass blocks (scalar per vertex pair;
+    the d-dim block is coeff * I_d):
+      tets (k=4):      M_kl = rho * vol * (1 + delta_kl) / 20
+      triangles (k=3): M_kl = rho * area * (1 + delta_kl) / 12, with
+                       area = vols / 2, as vols holds DOUBLE areas."""
+    if k not in (3, 4):
+        raise NotImplementedError("only linear tets and triangles are ported")
     base = 1.0 + np.eye(k)
-    w = density * vols / 20.0
+    w = density * vols / 20.0 if k == 4 else density * (vols / 2.0) / 12.0
     return w[:, None, None] * base[None]
 
 
 def boundary_facets(T: np.ndarray) -> np.ndarray:
-    """Boundary faces of a tet mesh: faces occurring exactly once
-    (igl::boundary_facets), oriented outward for positive tets."""
-    if T.shape[1] != 4:
-        raise NotImplementedError("only linear tets (k=4) are ported")
-    faces = np.concatenate(
-        [T[:, [1, 3, 2]], T[:, [0, 2, 3]], T[:, [0, 3, 1]], T[:, [0, 1, 2]]],
-        axis=0,
-    )
+    """Boundary faces of a tet mesh, or boundary edges of a triangle mesh:
+    facets occurring exactly once (igl::boundary_facets), oriented outward
+    for positive tets."""
+    if T.shape[1] == 4:
+        faces = np.concatenate(
+            [T[:, [1, 3, 2]], T[:, [0, 2, 3]], T[:, [0, 3, 1]],
+             T[:, [0, 1, 2]]],
+            axis=0,
+        )
+    elif T.shape[1] == 3:
+        faces = np.concatenate([T[:, [1, 2]], T[:, [2, 0]], T[:, [0, 1]]],
+                               axis=0)
+    else:
+        raise NotImplementedError("only linear tets and triangles are ported")
     key = np.sort(faces, axis=1)
     _, inv, counts = np.unique(key, axis=0, return_inverse=True,
                                return_counts=True)

@@ -1,6 +1,6 @@
 """Procedural mesh generators (host-side numpy), a copy of
-mixedfem_tpu/mesh/generators.py:box_tet_mesh kept here so the port does not
-import the JAX package."""
+mixedfem_tpu/mesh/generators.py (box_tet_mesh, grid_tri_mesh) kept here so
+the port does not import the JAX package."""
 
 from __future__ import annotations
 
@@ -64,3 +64,28 @@ def box_tet_mesh(nx: int, ny: int, nz: int, size=(1.0, 1.0, 1.0), origin=(0.0, 0
     flip = vol6 < 0
     T[flip, 2], T[flip, 3] = T[flip, 3].copy(), T[flip, 2].copy()
     return V, T
+
+
+def grid_tri_mesh(nx: int, ny: int, size=(1.0, 1.0), origin=(0.0, 0.0)):
+    """Regular 2D triangle grid: (V (nv, 2) f64, T (2 nx ny, 3) i32), each
+    cell split along alternating diagonals."""
+    xs = np.linspace(0, size[0], nx + 1) + origin[0]
+    ys = np.linspace(0, size[1], ny + 1) + origin[1]
+    X, Y = np.meshgrid(xs, ys, indexing="ij")
+    V = np.stack([X.ravel(), Y.ravel()], axis=-1)
+
+    def vid(i, j):
+        return i * (ny + 1) + j
+
+    tris = []
+    for i in range(nx):
+        for j in range(ny):
+            v00, v10 = vid(i, j), vid(i + 1, j)
+            v01, v11 = vid(i, j + 1), vid(i + 1, j + 1)
+            if (i + j) % 2 == 0:
+                tris.append([v00, v10, v11])
+                tris.append([v00, v11, v01])
+            else:
+                tris.append([v00, v10, v01])
+                tris.append([v10, v11, v01])
+    return V, np.asarray(tris, dtype=np.int32)

@@ -1,5 +1,6 @@
-"""MeshData and the element-level operations of the tet solid path
-(port of mixedfem_tpu/mesh/mesh.py, 3D tets only).
+"""MeshData and the element-level operations of the solid paths: 3D linear
+tets and 2D linear triangles (port of mixedfem_tpu/mesh/mesh.py, its
+solids).
 
 Everything is matrix-free: deformation gradients are per-element gathers
 plus small contractions, and every element-to-vertex sum goes through the
@@ -23,21 +24,21 @@ from mixedfem_tpu_torch.ops import assembly
 class MeshData:
     """Static per-simulation discretization data, on one device."""
 
-    V0: torch.Tensor          # (nv, 3) rest positions
-    T: torch.Tensor           # (E, 4) int32 element vertex ids
-    dphidX: torch.Tensor      # (E, 4, 3) shape function gradients
-    vols: torch.Tensor        # (E,) element volumes
-    mass_coeff: torch.Tensor  # (E, 4, 4) consistent mass blocks (scalar x I3)
+    V0: torch.Tensor          # (nv, d) rest positions
+    T: torch.Tensor           # (E, k) int32 element vertex ids
+    dphidX: torch.Tensor      # (E, k, d) shape function gradients
+    vols: torch.Tensor        # (E,) element volumes (2D: double areas)
+    mass_coeff: torch.Tensor  # (E, k, k) consistent mass blocks (scalar x I_d)
     mass_lumped: torch.Tensor  # (nv,) row-sum mass
     mass_diag: torch.Tensor   # (nv,) diagonal of the consistent mass
     free_mask: torch.Tensor   # (nv,) 1.0 free, 0.0 pinned
     mu: torch.Tensor          # (E,) Lame mu
     lam: torch.Tensor         # (E,) Lame lambda
     model_id: torch.Tensor    # (E,) int32 index into `models`
-    ext_force: torch.Tensor   # (nv, 3) external acceleration
+    ext_force: torch.Tensor   # (nv, d) external acceleration
     obj_id: torch.Tensor      # (nv,) int32 object index per vertex
-    F_srf: torch.Tensor       # (nf, 3) int32 boundary faces
-    E_srf: torch.Tensor       # (ne, 2) int32 boundary edges
+    F_srf: torch.Tensor       # boundary facets, 3D (nf, 3), 2D (ne, 2) int32
+    E_srf: torch.Tensor       # (ne, 2) int32 boundary edges (2D: F_srf)
     plan: assembly.IncidencePlan  # vertex <- (element, corner) slots
     models: Tuple[str, ...] = ()
     dim: int = 3
@@ -62,8 +63,10 @@ def mesh_from_arrays(
     """MeshData from host arrays already in their final values (cast to
     `dtype` on `device`); builds the incidence plan from T."""
     T = np.asarray(T, np.int32)
-    if T.ndim != 2 or T.shape[1] != 4 or np.asarray(V0).shape[1] != 3:
-        raise NotImplementedError("only 3D linear tets are ported")
+    dim = np.asarray(V0).shape[1]
+    if T.ndim != 2 or (T.shape[1], dim) not in ((4, 3), (3, 2)):
+        raise NotImplementedError(
+            "only 3D linear tets and 2D linear triangles are ported")
 
     def f(a):
         return torch.tensor(np.asarray(a), dtype=dtype, device=device)
@@ -82,12 +85,13 @@ def mesh_from_arrays(
         model_id=torch.tensor(np.asarray(model_id, np.int32), device=device),
         ext_force=f(ext_force),
         obj_id=torch.tensor(np.asarray(obj_id, np.int32), device=device),
-        F_srf=torch.tensor(np.asarray(F_srf, np.int32).reshape(-1, 3),
+        F_srf=torch.tensor(np.asarray(F_srf, np.int32).reshape(-1, dim),
                            device=device),
         E_srf=torch.tensor(np.asarray(E_srf, np.int32).reshape(-1, 2),
                            device=device),
         plan=assembly.build_incidence_plan(T, len(np.asarray(V0)), device),
         models=tuple(models),
+        dim=dim,
     )
 
 
@@ -107,13 +111,17 @@ def build_mesh_data(
     device="cuda",
 ) -> MeshData:
     """Build MeshData from host arrays (f64 precompute, then cast to
-    `dtype` on `device`)."""
+    `dtype` on `device`): tets with V (nv, 3), triangles with V (nv, 2)."""
     dev = resolve_device(device)
     V = np.asarray(V, dtype=np.float64)
     T = np.asarray(T, dtype=np.int32)
     E = len(T)
-    vols = disc.tet_volumes(V, T)
-    dphidX = disc.tet_dphidX(V, T)
+    if V.shape[1] == 3:
+        vols = disc.tet_volumes(V, T)
+        dphidX = disc.tet_dphidX(V, T)
+    else:
+        vols = disc.tri_double_areas(V, T)
+        dphidX = disc.tri2d_dphidX(V, T)
     density = np.broadcast_to(np.asarray(density, np.float64), (E,))
     mass_coeff = disc.consistent_mass_coeff(vols, density, T.shape[1])
     lumped = np.zeros(len(V))
@@ -130,19 +138,19 @@ def build_mesh_data(
         mu=np.broadcast_to(mu, (E,)), lam=np.broadcast_to(lam, (E,)),
         model_id=np.broadcast_to(model_id, (E,)), ext_force=ext_force,
         obj_id=np.zeros(len(V)) if obj_id is None else obj_id,
-        F_srf=F_srf, E_srf=disc.edges(F_srf),
+        F_srf=F_srf, E_srf=disc.edges(F_srf) if V.shape[1] == 3 else F_srf,
         models=models, dtype=dtype, device=dev,
     )
 
 
 def def_grad(mesh: MeshData, x: torch.Tensor) -> torch.Tensor:
-    """Deformation gradients (E, 3, 3): F[r, c] = sum_k x[T[e,k], r] dphidX[e, k, c]."""
+    """Deformation gradients (E, d, d): F[r, c] = sum_k x[T[e,k], r] dphidX[e, k, c]."""
     xe = x[mesh.T]
     return torch.einsum("ekr,ekc->erc", xe, mesh.dphidX)
 
 
 def mass_matvec(mesh: MeshData, x: torch.Tensor) -> torch.Tensor:
-    """Consistent mass product M x, matrix-free (nv, 3) -> (nv, 3)."""
+    """Consistent mass product M x, matrix-free (nv, d) -> (nv, d)."""
     ye = torch.einsum("ekl,eld->ekd", mesh.mass_coeff, x[mesh.T])
     return assembly.segment_sum(mesh.plan, ye)
 

@@ -1,5 +1,5 @@
-"""Batched 3x3 polar decomposition and rotation derivatives
-(port of mixedfem_tpu/ops/rotation.py, 3D part).
+"""Batched 3x3 and 2x2 polar decompositions and rotation derivatives
+(port of mixedfem_tpu/ops/rotation.py, without the warm-started polar).
 
 - Symmetric eigendecomposition by cyclic Jacobi with a FIXED sweep count
   (branch-free; the same rotations, in the same order, as the JAX package).
@@ -10,6 +10,8 @@
   dS_rc = outer(R[r,:], e_c) - skew(omega_rc) S, packed with off-diagonal
   averaging; (tr(S) I - S) is inverted in closed form with a determinant
   guard.
+- 2D: closed-form 2x2 polar decomposition and signed SVD, and ds/dF with
+  tr(S) guarded away from 0.
 """
 
 from __future__ import annotations
@@ -167,6 +169,51 @@ def polar33(F: torch.Tensor, sweeps: int = 6):
     return R, S
 
 
+def polar22(F: torch.Tensor):
+    """Closed-form 2x2 polar decomposition with the signed-sigma convention:
+    (R, S) with R = rot(beta), cos = E / Q, sin = H / Q (the identity where
+    Q <= 1e-30), and S = sym(R^T F)."""
+    E = 0.5 * (F[..., 0, 0] + F[..., 1, 1])
+    H = 0.5 * (F[..., 1, 0] - F[..., 0, 1])
+    Q = torch.sqrt(E * E + H * H)
+    ok = Q > 1e-30
+    Qs = torch.where(ok, Q, torch.ones_like(Q))
+    c = torch.where(ok, E / Qs, torch.ones_like(E))
+    s = torch.where(ok, H / Qs, torch.zeros_like(H))
+    R = torch.stack(
+        [torch.stack([c, -s], dim=-1), torch.stack([s, c], dim=-1)], dim=-2
+    )
+    S = torch.einsum("...ki,...kj->...ij", R, F)  # R^T F, symmetric in exact math
+    return R, 0.5 * (S + S.transpose(-1, -2))
+
+
+def svd22(F: torch.Tensor):
+    """Closed-form signed 2x2 SVD: F = U diag(s) V^T with U, V in SO(2)."""
+    E = 0.5 * (F[..., 0, 0] + F[..., 1, 1])
+    Fm = 0.5 * (F[..., 0, 0] - F[..., 1, 1])
+    G = 0.5 * (F[..., 1, 0] + F[..., 0, 1])
+    H = 0.5 * (F[..., 1, 0] - F[..., 0, 1])
+    Q = torch.sqrt(E * E + H * H)
+    Rm = torch.sqrt(Fm * Fm + G * G)
+    beta = torch.atan2(H, E)    # phi - theta
+    alpha = torch.atan2(G, Fm)  # phi + theta
+    phi = 0.5 * (alpha + beta)
+    theta = 0.5 * (alpha - beta)
+
+    def rot(t):
+        c, s = torch.cos(t), torch.sin(t)
+        return torch.stack(
+            [torch.stack([c, -s], dim=-1), torch.stack([s, c], dim=-1)], dim=-2
+        )
+
+    return rot(phi), torch.stack([Q + Rm, Q - Rm], dim=-1), rot(theta)
+
+
+def polar(F: torch.Tensor, dim: int):
+    """Polar decomposition (R, S) of (..., d, d) deformation gradients."""
+    return polar33(F) if dim == 3 else polar22(F)
+
+
 def _sym_inv3(G: torch.Tensor, eps: float) -> torch.Tensor:
     """Closed-form inverse of a symmetric 3x3 with a determinant guard:
     |det| is raised to eps, keeping its sign."""
@@ -226,3 +273,31 @@ def dsdF33(R: torch.Tensor, S: torch.Tensor) -> torch.Tensor:
     # dS[..., r, c, a, b] = R[r, a] delta_bc - cx[..., r, c, b, a]
     dS = Rr[..., None] * eye[:, None, :] - cx.transpose(-1, -2)
     return sym.pack(dS).permute(*range(R.ndim - 2), -1, -3, -2)
+
+
+def dsdF22(R: torch.Tensor, S: torch.Tensor) -> torch.Tensor:
+    """ds/dF for the 2D sym-vec stretch, (..., 3, 2, 2):
+    omega_rc = (R[r,1] delta_c0 - R[r,0] delta_c1) / tr(S) and
+    dS_rc = outer(R[r,:], e_c) - omega_rc J S with J = [[0,-1],[1,0]]; tr(S)
+    is raised in magnitude to eps (1e-10 in f64, 1e-6 in f32), keeping its
+    sign."""
+    dt = R.dtype
+    eps = 1e-10 if dt == torch.float64 else 1e-6
+    trS = S.diagonal(dim1=-2, dim2=-1).sum(-1)
+    guard = torch.where(trS >= 0, torch.full_like(trS, eps),
+                        torch.full_like(trS, -eps))
+    trS = torch.where(trS.abs() > eps, trS, guard)
+    J = torch.tensor([[0.0, -1.0], [1.0, 0.0]], dtype=dt, device=R.device)
+    JS = torch.einsum("ab,...bd->...ad", J, S)
+    omega = torch.stack([R[..., :, 1], -R[..., :, 0]], dim=-1) / trS[..., None, None]
+    eye = torch.eye(2, dtype=dt, device=R.device)
+    # outer[..., r, c, a, b] = R[r, a] delta_bc
+    outer = R[..., :, None, :, None] * eye[None, :, None, :]
+    dS = outer - omega[..., None, None] * JS[..., None, None, :, :]
+    d01 = 0.5 * (dS[..., 0, 1] + dS[..., 1, 0])
+    return torch.stack([dS[..., 0, 0], dS[..., 1, 1], d01], dim=-3)
+
+
+def dsdF(R: torch.Tensor, S: torch.Tensor, dim: int) -> torch.Tensor:
+    """ds/dF (..., N, d, d) of the sym-vec stretch."""
+    return dsdF33(R, S) if dim == 3 else dsdF22(R, S)

@@ -32,11 +32,12 @@ def contract_G_Gw_plain(D, dphi, Hs, vols):
 
 
 def contract_G_Gw(D, dphi, Hs, vols):
-    """G = D : dphi (E, 6, 4, 3) and Gw = sqrt(vol) Hs G (E, 6, 4, 3) from
-    ds/dF D (E, 6, 3, 3), dphi (E, 4, 3), Hs (E, 6, 6) and vol (E,).
+    """G = D : dphi and Gw = sqrt(vol) Hs G, both (E, N, k, d), from ds/dF
+    D (E, N, d, d), dphi (E, k, d), Hs (E, N, N) and vol (E,): tets (N=6,
+    k=4, d=3) or triangles (N=3, k=3, d=2).
 
-    On a CUDA tensor this launches kernel K3; on a CPU tensor it runs
-    contract_G_Gw_plain."""
+    On a CUDA tensor this launches kernel K3 (its instance for the shape);
+    on a CPU tensor it runs contract_G_Gw_plain."""
     if D.device.type == "cpu":
         return contract_G_Gw_plain(D, dphi, Hs, vols)
     return cuda.contract_G_Gw(

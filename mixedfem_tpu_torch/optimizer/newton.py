@@ -1,9 +1,10 @@
 """Newton implicit time stepper (port of the generic pcg branch of
 mixedfem_tpu/optimizer/newton.py:newton_step).
 
-One call is one implicit BDF step of a 3D tet solid with the mixed-stretch
-variable and, when the state carries contact frames, IPC contact (the
-mixed-collision variable, the nodal collision barrier, lagged friction):
+One call is one implicit BDF step of a 3D tet or 2D triangle solid with
+the mixed-stretch variable and, when the state carries contact frames, IPC
+contact (the mixed-collision variable, the nodal collision barrier, lagged
+friction):
 
   press forces -> lagged friction set -> [ update -> assemble -> PCG on
     the condensed operator -> local (ds, la; dd, contact la) -> ACCD clamp
@@ -19,7 +20,8 @@ matvec is the lattice stencil K5 on blocks that K6 assembles once per
 Newton iteration: with no coarse space or a grid one the whole iteration
 follows the JAX step's row body (lattice CG, lattice preconditioner, the
 alpha-parametrized merit), with a geometric one, or with contact, the
-generic body (the configuration of the JAX package's entry()).
+generic body (the configuration of the JAX package's entry()). Stencil
+plans are 3D only, as in the JAX package; 2D meshes run the generic body.
 
 Contact sums go through incidence plans built on the host, K2 on the card,
 in a fixed order: frame corners to vertices through the frame plan built
@@ -90,9 +92,9 @@ class StepStats:
 
 @dataclasses.dataclass
 class SimState:
-    x: torch.Tensor     # (nv, 3) positions (pinned rows follow the BCs)
-    s: torch.Tensor     # (E, 6) mixed stretch
-    la: torch.Tensor    # (E, 6) multipliers
+    x: torch.Tensor     # (nv, d) positions (pinned rows follow the BCs)
+    s: torch.Tensor     # (E, N) mixed stretch (N = 6 in 3D, 3 in 2D)
+    la: torch.Tensor    # (E, N) multipliers
     bdf: bdfmod.BDFState
     bc_states: Tuple[bcmod.BCState, ...]
     contact: ContactFrames  # padded per-step candidates (capacity may be 0)
@@ -171,7 +173,7 @@ def mixed_contact_merit(cf, x_t, cd_t, act_prev_mask, cla, dhat, kappa,
     d_eff = torch.where(act_prev, cd_t, D_t)
     act = act_prev | (D_t < dhat)
     m_t = None
-    if ee_mollifier:
+    if ee_mollifier and mesh.dim == 3:
         from mixedfem_tpu_torch.collision import mollifier as mol
 
         m_t = mol.mollifier(verts, ftype, mol.eps_x(mesh.V0[frames]))
@@ -203,13 +205,17 @@ def check_supported(config: SimConfig) -> str:
     return solver
 
 
-def _select_body(config: SimConfig, coarse, matvec_plan, contact: bool) -> str:
+def _select_body(config: SimConfig, coarse, matvec_plan, contact: bool,
+                 dim: int) -> str:
     """'grid', 'stencil' or 'generic', as the JAX step selects its Newton
     body (mixedfem_tpu/optimizer/newton.py:387-405 and :611-633; contact
     keeps the lattice body out); raises for the stencil branch this port
-    does not cover."""
+    does not cover, and for a stencil plan of a 2D mesh, which the JAX
+    package's build_stencil_plan would not make."""
     if not isinstance(matvec_plan, stmod.StencilPlan):
         return "generic"
+    if dim != 3:
+        raise ValueError("a stencil plan of a 2D mesh: stencil plans are 3D")
     if contact or (coarse is not None and coarse.grid is None):
         return "stencil"
     if config.inertia_blend_factor != 1.0:
@@ -264,7 +270,8 @@ def newton_step(
     if press_specs:
         press_ext = torch.zeros_like(state.x)
         for spec, pst in zip(press_specs, state.press_states):
-            press_ext = press_ext + pressmod.press_force(spec, pst, mesh.nv, 3)
+            press_ext = press_ext + pressmod.press_force(spec, pst, mesh.nv,
+                                                         mesh.dim)
         mesh = dataclasses.replace(mesh, ext_force=mesh.ext_force + press_ext)
 
     def assemble(contrib):
@@ -295,7 +302,8 @@ def newton_step(
 
     if solver != "pcg":
         coarse = None
-    body_kind = _select_body(config, coarse, matvec_plan, any_contact)
+    body_kind = _select_body(config, coarse, matvec_plan, any_contact,
+                             mesh.dim)
     precond_out = state.precond
     Ac_inv = None
     if coarse is not None:
@@ -337,7 +345,7 @@ def newton_step(
             if refresh_every > 1:
                 precond_out = Ac_inv
 
-    eye = torch.eye(3, dtype=dtype, device=dev)
+    eye = torch.eye(mesh.dim, dtype=dtype, device=dev)
     eps_E = 0.0 if config.ls_strict else 16.0 * torch.finfo(dtype).eps
 
     def contact_energy(x_t, cd_t, cact, cla):
@@ -392,7 +400,8 @@ def newton_step(
             # --- condensed SPD solve (K1 + K2, K1 + K4, or K5 matvec)
             bj = pcgmod.block_jacobi_inv(blocks, mesh.free_mask)
             if coarse is not None:
-                tl = coarsemod.two_level_preconditioner(coarse, mesh.free_mask, bj)
+                tl = coarsemod.two_level_preconditioner(
+                    coarse, mesh.free_mask, bj, mesh.dim)
 
                 def Minv(r):
                     return tl(r, Ac_inv)

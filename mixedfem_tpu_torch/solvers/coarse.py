@@ -5,9 +5,12 @@ Vertices are aggregated into geometric clusters (build_coarse_space) or,
 on a structured vertex lattice, into lattice blocks (build_coarse_space_grid,
 whose `grid` marker lets the restriction and prolongation run as lattice
 reshape-sums); each aggregate is spanned
-by its 6 rigid-body modes about its centroid. The Galerkin matrix
-A_c = P^T A P is assembled element-wise, inverted densely on the device and
-applied as M^{-1} r = blockJacobi(r) + P A_c^{-1} P^T r.
+by its 6 rigid-body modes about its centroid (in 2D, as in the JAX package,
+the same six with the vertex offsets padded by a zero z: three of them
+vanish on the plane, and the Galerkin matrix's ridge keeps them
+invertible). The Galerkin matrix A_c = P^T A P is assembled element-wise,
+inverted densely on the device and applied as
+M^{-1} r = blockJacobi(r) + P A_c^{-1} P^T r.
 
 The dense products are torch.matmul in full float32: TF32 is switched off
 explicitly (torch.backends.cuda.matmul.allow_tf32 = False) wherever this
@@ -34,7 +37,7 @@ class CoarseSpace:
     """Static aggregation data."""
 
     agg_id: torch.Tensor     # (nv,) int64 aggregate per vertex
-    r: torch.Tensor          # (nv, 3) X_v - centroid(agg), zero at pins
+    r: torch.Tensor          # (nv, 3) X_v - centroid(agg), z 0 in 2D, 0 at pins
     pair_id: torch.Tensor    # (E, k, k) int64 bucket of (agg_k, agg_l)
     pair_rows: torch.Tensor  # (npairs,) int64 aggregate row of each bucket
     pair_cols: torch.Tensor  # (npairs,) int64 aggregate col
@@ -119,6 +122,8 @@ def build_coarse_space(
     np.add.at(cnt, agg_id, 1.0)
     cent /= cnt[:, None]
     r = V - cent[agg_id]
+    if d == 2:
+        r = np.concatenate([r, np.zeros((nv, 1))], axis=1)
     r[np.asarray(is_fixed, bool)] = 0.0
     pair_id, pair_rows, pair_cols = _pair_buckets(agg_id, T, naggr)
     return coarse_from_arrays(
@@ -151,7 +156,7 @@ def build_coarse_space_grid(
         spacing = np.array([
             (V[:, 0].max() - V[:, 0].min()) / max(NI - 1, 1),
             (V[:, 1].max() - V[:, 1].min()) / max(NJ - 1, 1),
-            (V[:, 2].max() - V[:, 2].min()) / max(NK - 1, 1),
+            (V[:, 2].max() - V[:, 2].min()) / max(NK - 1, 1) if d > 2 else 1.0,
         ])
         spacing = np.maximum(spacing, 1e-12)
         edge = (np.prod(spacing) * target_size) ** (1.0 / 3.0)
@@ -173,6 +178,8 @@ def build_coarse_space_grid(
     np.add.at(cnt, agg_id, 1.0)
     cent /= np.maximum(cnt, 1.0)[:, None]
     r = V - cent[agg_id]
+    if d == 2:
+        r = np.concatenate([r, np.zeros((nv, 1))], axis=1)
     r[np.asarray(is_fixed, bool)] = 0.0
     pair_id, pair_rows, pair_cols = _pair_buckets(agg_id, T, naggr)
     return coarse_from_arrays(

@@ -7,7 +7,7 @@ two of them, both the condensed matrix-free PCG of optimizer/newton.py:
 
   pcg                two-level rigid-body coarse preconditioner when the
                      caller gives a coarse space, else block-Jacobi
-  pcg-block-jacobi   per-vertex (3, 3) block-Jacobi only
+  pcg-block-jacobi   per-vertex (d, d) block-Jacobi only
 
 Every other known name raises NotImplementedError; an unknown name raises
 ValueError, as in the JAX package.

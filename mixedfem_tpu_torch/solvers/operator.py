@@ -40,9 +40,9 @@ def element_apply_plain(T, Gw, mass, free_mask, p):
 
 
 def element_apply(mesh: meshmod.MeshData, Gw: torch.Tensor, p: torch.Tensor):
-    """Per-corner rows (E, 4, 3) of the element blocks applied to the
-    projected p. On a CUDA tensor this launches kernel K1; on a CPU tensor
-    it runs element_apply_plain."""
+    """Per-corner rows (E, k, d) of the element blocks applied to the
+    projected p. On a CUDA tensor this launches kernel K1 (its instance for
+    tets or triangles); on a CPU tensor it runs element_apply_plain."""
     args = (mesh.T, Gw, mesh.mass_coeff, mesh.free_mask, p)
     if p.device.type == "cpu":
         return element_apply_plain(*args)
@@ -58,7 +58,7 @@ def element_matvec(
 
 
 # The banded plan of the element table: the scatter plan of the rows
-# (E*4, .) in element order (elements sorted by min vertex id keep its
+# (E*k, .) in element order (elements sorted by min vertex id keep its
 # windows narrow; any order is summed correctly).
 BandedPlan = bs.ScatterPlan
 
@@ -76,6 +76,6 @@ def banded_matvec(
 ) -> torch.Tensor:
     """element_matvec with the vertex sum over the banded plan: K1's rows in
     element order, zero-padded to the plan's Rp, summed by K4."""
-    rows = element_apply(mesh, ms_coeffs.Gw, p).reshape(-1, 3)
+    rows = element_apply(mesh, ms_coeffs.Gw, p).reshape(-1, mesh.dim)
     out = bs.scatter_add_sorted(plan, bs.pad_rows(plan, rows))
     return meshmod.project_free(mesh, out)

@@ -55,7 +55,16 @@ def pcg(
 
 
 def _small_inv(blocks: torch.Tensor) -> torch.Tensor:
-    """Closed-form (adjugate) batched inverse of (n, 3, 3) blocks."""
+    """Closed-form (adjugate) batched inverse of (n, d, d) blocks, d 2 or
+    3."""
+    if blocks.shape[-1] == 2:
+        a, b = blocks[..., 0, 0], blocks[..., 0, 1]
+        c, e = blocks[..., 1, 0], blocks[..., 1, 1]
+        det = a * e - b * c
+        inv = torch.stack(
+            [torch.stack([e, -b], -1), torch.stack([-c, a], -1)], -2
+        )
+        return inv / det[..., None, None]
     m = blocks
     c00 = m[..., 1, 1] * m[..., 2, 2] - m[..., 1, 2] * m[..., 2, 1]
     c01 = m[..., 1, 2] * m[..., 2, 0] - m[..., 1, 0] * m[..., 2, 2]
@@ -79,9 +88,10 @@ def _small_inv(blocks: torch.Tensor) -> torch.Tensor:
 
 
 def block_jacobi_inv(diag_blocks: torch.Tensor, free_mask: torch.Tensor):
-    """Block-Jacobi preconditioner application from per-vertex (3, 3)
+    """Block-Jacobi preconditioner application from per-vertex (d, d)
     diagonal blocks; pinned vertices get the identity."""
-    eye = torch.eye(3, dtype=diag_blocks.dtype, device=diag_blocks.device)
+    eye = torch.eye(diag_blocks.shape[-1], dtype=diag_blocks.dtype,
+                    device=diag_blocks.device)
     mask = free_mask[:, None, None]
     inv = _small_inv(diag_blocks * mask + eye * (1.0 - mask))
     fm = free_mask[:, None]

@@ -37,13 +37,13 @@ def energy(cf: ContactFrames, x, dhat: float, kappa: float, dt: float):
 class NodalCoeffs:
     """Per real frame (n of them)."""
 
-    g: torch.Tensor  # (n, 4, 3) potential gradient
-    H: torch.Tensor  # (n, 12, 12) PSD-projected Hessian
+    g: torch.Tensor  # (n, 4, d) potential gradient
+    H: torch.Tensor  # (n, 4d, 4d) PSD-projected Hessian
 
 
 def grad_hess(potential, vflat, *args):
-    """Per-frame gradient (n, 12) and PSD-projected Hessian (n, 12, 12) of
-    potential(v (12,), *per-frame args) at vflat (n, 12)."""
+    """Per-frame gradient (n, 4d) and PSD-projected Hessian (n, 4d, 4d) of
+    potential(v (4d,), *per-frame args) at vflat (n, 4d)."""
     g = torch.func.vmap(torch.func.grad(potential))(vflat, *args)
     H = torch.func.vmap(torch.func.hessian(potential))(vflat, *args)
     return g, psd.psd_project(H, tol=0.0, sweeps=6)
@@ -52,16 +52,16 @@ def grad_hess(potential, vflat, *args):
 def update(cf: ContactFrames, x, dhat: float, kappa: float) -> NodalCoeffs:
     frames, ftype = cf.real()
     verts = x[frames]
-    n = verts.shape[0]
+    n, k, d = verts.shape
     D = dist.frame_distance(verts, ftype)
     act = (D < dhat).to(x.dtype)
 
     def potential(vflat, ft):
-        D1 = dist.frame_distance(vflat.reshape(4, 3), ft)
+        D1 = dist.frame_distance(vflat.reshape(k, d), ft)
         return kappa * bar.barrier(D1 * D1, dhat * dhat)
 
-    g, H = grad_hess(potential, verts.reshape(n, 12), ftype)
-    return NodalCoeffs(g=(g * act[:, None]).reshape(n, 4, 3),
+    g, H = grad_hess(potential, verts.reshape(n, k * d), ftype)
+    return NodalCoeffs(g=(g * act[:, None]).reshape(n, k, d),
                        H=H * act[:, None, None])
 
 
@@ -70,15 +70,15 @@ def gradient(mesh, ff, c: NodalCoeffs) -> torch.Tensor:
 
 
 def matvec(mesh, ff, c: NodalCoeffs, p) -> torch.Tensor:
-    n = ff.nreal
-    pe = meshmod.project_free(mesh, p)[ff.frames[:n].long()].reshape(n, 12)
+    n, d = ff.nreal, mesh.dim
+    pe = meshmod.project_free(mesh, p)[ff.frames[:n].long()].reshape(n, 4 * d)
     y = torch.sum(c.H * pe[:, None, :], dim=-1)  # products, not a bmm
-    out = assembly.segment_sum(ff.plan, y.reshape(n, 4, 3))
+    out = assembly.segment_sum(ff.plan, y.reshape(n, 4, d))
     return meshmod.project_free(mesh, out)
 
 
 def diag_blocks(mesh, ff, c: NodalCoeffs) -> torch.Tensor:
-    n = ff.nreal
-    Hm = c.H.reshape(n, 4, 3, 4, 3)
-    B = torch.diagonal(Hm, dim1=1, dim2=3).permute(0, 3, 1, 2)  # (n, 4, 3, 3)
+    n, d = ff.nreal, mesh.dim
+    Hm = c.H.reshape(n, 4, d, 4, d)
+    B = torch.diagonal(Hm, dim1=1, dim2=3).permute(0, 3, 1, 2)  # (n, 4, d, d)
     return assembly.segment_sum(ff.plan, B)

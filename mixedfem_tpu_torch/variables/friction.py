@@ -36,10 +36,10 @@ class FrictionFrames:
 
     frames: torch.Tensor  # (n, 4) int32
     w: torch.Tensor       # (n, 4) closest-point relative-displacement weights
-    basis: torch.Tensor   # (n, 3, 2) tangent basis at V0
+    basis: torch.Tensor   # (n, d, d-1) tangent basis at V0
     N: torch.Tensor       # (n,) lagged normal force magnitude (>= 0)
     active: torch.Tensor  # (n,) mask
-    V0: torch.Tensor      # (n, 4, 3) pre-step frame positions
+    V0: torch.Tensor      # (n, 4, d) pre-step frame positions
     plan: assembly.IncidencePlan  # the contact frames' plan
 
     @property
@@ -48,7 +48,9 @@ class FrictionFrames:
 
 
 def _tangent_basis(n):
-    """(..., 3) unit normal -> (..., 3, 2) orthonormal tangent basis."""
+    """(..., d) unit normal -> (..., d, d-1) orthonormal tangent basis."""
+    if n.shape[-1] == 2:
+        return torch.stack([-n[..., 1], n[..., 0]], dim=-1)[..., None]
     ex = torch.zeros_like(n)
     ex[..., 0] = 1.0
     ey = torch.zeros_like(n)
@@ -85,7 +87,7 @@ def _f0(y, eps):
 
 
 def _potential(vframe, w, basis, N, V0, mu, epsv_h):
-    """Friction potential of frames (..., 4, 3) as a function of their
+    """Friction potential of frames (..., 4, d) as a function of their
     vertices."""
     u = torch.sum(w[..., :, None] * (vframe - V0), dim=-2)
     ut = torch.sum(basis * u[..., :, None], dim=-2)
@@ -102,15 +104,15 @@ def energy(ff: FrictionFrames, x, mu: float, epsv_h: float, dt: float):
 
 def update(ff: FrictionFrames, x, mu: float, epsv_h: float) -> NodalCoeffs:
     verts = x[ff.frames.long()]
-    C = verts.shape[0]
+    C, k, d = verts.shape
 
     def potential(vflat, w, basis, N, V0):
-        return _potential(vflat.reshape(4, 3), w, basis, N, V0, mu, epsv_h)
+        return _potential(vflat.reshape(k, d), w, basis, N, V0, mu, epsv_h)
 
-    g, H = vcol.grad_hess(potential, verts.reshape(C, 12), ff.w, ff.basis,
+    g, H = vcol.grad_hess(potential, verts.reshape(C, k * d), ff.w, ff.basis,
                           ff.N, ff.V0)
     af = ff.active
-    return NodalCoeffs(g=(g * af[:, None]).reshape(C, 4, 3),
+    return NodalCoeffs(g=(g * af[:, None]).reshape(C, k, d),
                        H=H * af[:, None, None])
 
 

@@ -79,13 +79,14 @@ class CollisionCoeffs:
     """Per real frame (n of them)."""
 
     D: torch.Tensor       # (n,) true distance at the current x
-    Gx: torch.Tensor      # (n, 4, 3) distance gradient
+    Gx: torch.Tensor      # (n, 4, d) distance gradient
     g: torch.Tensor       # (n,) dpsi/dd (masked; mollifier-scaled if on)
     H: torch.Tensor       # (n,) d2psi/dd2 (clamped; mollifier-scaled if on)
     active: torch.Tensor  # (n,) float mask
     d: torch.Tensor       # (n,) mixed distances (new frames start at D)
     la: torch.Tensor      # (n,) multipliers (new frames zeroed)
-    # EE-mollifier force kappa b(d^2) dm/dx (n, 4, 3); None when off
+    # EE-mollifier force kappa b(d^2) dm/dx (n, 4, 3); None when off (and
+    # in 2D, where no edge-edge frame exists)
     gmf: Optional[torch.Tensor] = None
 
 
@@ -109,7 +110,7 @@ def update(mesh, cf: ContactFrames, x, d_prev, la_prev, active_prev,
     g, H = bar.mixed_barrier_grad_hess(d, dhat, kappa)
     af = active.to(x.dtype)
     gmf = None
-    if ee_mollifier:
+    if ee_mollifier and mesh.dim == 3:
         # scale the barrier by m(x) (Gauss-Newton: grad^2 m and the m-d
         # cross blocks are dropped, keeping the condensed system SPD); the
         # dm/dx force enters the rhs through gmf
@@ -134,7 +135,7 @@ def rhs(mesh, cf: ContactFrames, c: CollisionCoeffs) -> torch.Tensor:
 
 
 def _dot12(Gx, v):
-    """Per-frame Gx : v of (n, 4, 3) arrays, as products and one sum (an
+    """Per-frame Gx : v of (n, 4, d) arrays, as products and one sum (an
     einsum here runs as a batched matrix product, which splits the frames
     into many launches)."""
     return torch.sum(Gx * v, dim=(1, 2))
@@ -149,7 +150,7 @@ def matvec(mesh, cf: ContactFrames, c: CollisionCoeffs, p) -> torch.Tensor:
 
 
 def diag_blocks(mesh, cf: ContactFrames, c: CollisionCoeffs) -> torch.Tensor:
-    """(nv, 3, 3) vertex diagonal blocks of Gx H Gx^T."""
+    """(nv, d, d) vertex diagonal blocks of Gx H Gx^T."""
     B = (c.Gx[..., :, None] * c.Gx[..., None, :]
          * (c.H * c.active)[:, None, None, None])
     return assembly.segment_sum(cf.plan, B)

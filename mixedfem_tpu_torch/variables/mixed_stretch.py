@@ -1,5 +1,6 @@
 """MixedStretch, the per-element symmetric stretch variable
-(port of mixedfem_tpu/variables/mixed_stretch.py, 3D solid tets).
+(port of mixedfem_tpu/variables/mixed_stretch.py, solid tets and
+triangles: N = 6 in 3D, 3 in 2D).
 
 Per Newton iteration `update` produces the coefficients of the condensed
 SPD system:
@@ -43,7 +44,7 @@ class StretchCoeffs:
 
 def stretch_of_x(mesh: meshmod.MeshData, x: torch.Tensor):
     """Polar stretch sym-vec of the current deformation (E, N), and R."""
-    R, S = rotation.polar33(meshmod.def_grad(mesh, x))
+    R, S = rotation.polar(meshmod.def_grad(mesh, x), mesh.dim)
     return sym.pack(S), R
 
 
@@ -70,9 +71,9 @@ def update(mesh: meshmod.MeshData, x: torch.Tensor, s: torch.Tensor, dt):
     """Rotations and derivatives at (x, s). G and Gw come from one fused
     per-element pass (smallops.contract_G_Gw, kernel K3 on the card)."""
     F = meshmod.def_grad(mesh, x)
-    R, S = rotation.polar33(F)
+    R, S = rotation.polar(F, mesh.dim)
     Sv = sym.pack(S)
-    D = rotation.dsdF33(R, S)                              # (E, N, d, d)
+    D = rotation.dsdF(R, S, mesh.dim)                      # (E, N, d, d)
     H, Hinv, Hs, evals, g = _material_terms(
         s, mesh.mu, mesh.lam, mesh.model_id, mesh.models, dt
     )

@@ -33,7 +33,15 @@ from mixedfem_tpu_torch.optimizer import newton as tnewton
 from mixedfem_tpu_torch.solvers import operator as top
 from mixedfem_tpu_torch.variables import mixed_stretch as tms
 
-from torch_parity import beam_arrays, close, port, to_numpy
+from torch_parity import (  # noqa: F401 (one_torch_thread is a fixture)
+    beam_arrays, close, one_torch_thread, port, to_numpy,
+)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread(one_torch_thread):
+    """Every test of this module runs on one torch intra-op thread."""
+
 
 CHUNK = 128  # 900 tets -> 3600 rows, 29 chunks, the last one part padding
 STEP_CHUNK = 512  # 360 tets -> 1440 rows, 3 chunks

@@ -71,9 +71,9 @@ def jax_psd_compiled_once(monkeypatch):
     monkeypatch.setattr(jpsd, "psd_fix", _JPSD)
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(scope="module", autouse=True)
 def _one_thread(one_torch_thread):
-    """Every test of this file runs with one torch thread."""
+    """Every test of this module runs on one torch intra-op thread."""
 
 
 def near(actual, expected, rtol=1e-12):

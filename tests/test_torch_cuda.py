@@ -9,8 +9,11 @@ for bit; K5 and K6 are held to theirs on box grids up to the bench's 100k
 tets, and a grid step through them repeats bit for bit; the contact path's
 frame and pair plans go through K2 as the plain version adds, two float32
 contact runs repeat bit for bit, and a float64 contact trajectory matches
-the CPU's. This file imports neither JAX nor the JAX package, so it also
-runs where only PyTorch is installed:
+the CPU's. The triangle instances of K1 and K3 are held to theirs at the
+100k-triangle shapes and at sizes off K3's tile, a float64 2D step matches
+the CPU's and two float32 runs of the 100k-triangle step repeat bit for
+bit. This file imports neither JAX nor the JAX package, so it also runs
+where only PyTorch is installed:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 
@@ -35,7 +38,16 @@ from mixedfem_tpu_torch.solvers import coarse as tcoarse
 from mixedfem_tpu_torch.solvers import operator as top
 from mixedfem_tpu_torch.variables import mixed_stretch as tms
 
-from torch_parity import beam_arrays, write_contact_scene, write_drop_scene
+from torch_parity import (  # noqa: F401 (one_torch_thread is a fixture)
+    beam_arrays, one_torch_thread, tri_arrays, write_contact_scene,
+    write_drop_scene,
+)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread(one_torch_thread):
+    """Every test of this module runs on one torch intra-op thread."""
+
 
 DT = 0.02
 pytestmark = pytest.mark.cuda
@@ -610,3 +622,159 @@ def test_contact_trajectory_on_card_matches_cpu(card, tmp_path):
         assert g.stats.solver_iters.tolist() == c.stats.solver_iters.tolist()
         assert g.stats.active_frames.tolist() == c.stats.active_frames.tolist()
     assert int(c.stats.active_frames.max()) > 0
+
+
+# ---------------------------------------------------------------------------
+# the triangle instances (k=3, d=2, N=3)
+# ---------------------------------------------------------------------------
+
+def _tri_beam(nx, ny, dtype, device):
+    V, T, kw, _ = tri_arrays(nx, ny)
+    T = T[top.sort_elements_banded(T)]
+    mesh = tmesh.build_mesh_data(V, T, dtype=dtype, device=device, **kw)
+    cs = tcoarse.build_coarse_space(V, T, kw["is_fixed"], target_size=48,
+                                    dtype=dtype, device=device)
+    return mesh, cs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_tri_kernels_match_plain(card, dtype):
+    """K1 (k=3, d=2), K3 (N=3) and K2 at m=2 and 4 on the 100k-triangle
+    cantilever's coefficients at a perturbed state."""
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    mesh, _ = _tri_beam(400, 125, dtype, card)
+    g = torch.Generator(device=card).manual_seed(0)
+    x = mesh.V0 + 0.01 * torch.randn(mesh.V0.shape, generator=g, device=card,
+                                     dtype=dtype) * mesh.free_mask[:, None]
+    s, _ = tms.reset(mesh, x)
+    c = tms.update(mesh, x, s, DT)
+    p = torch.randn(mesh.nv, 2, generator=g, device=card, dtype=dtype)
+
+    def check(got, ref):
+        torch.cuda.synchronize()
+        assert got.shape == ref.shape
+        assert (got - ref).abs().max().item() <= tol * ref.abs().max().item()
+
+    cuda.LAUNCHES.clear()
+    args = (mesh.T, c.Gw, mesh.mass_coeff, mesh.free_mask, p)
+    check(cuda.element_apply(*args), top.element_apply_plain(*args))
+    rows = top.element_apply_plain(*args).reshape(-1, 2).contiguous()
+    check(cuda.segment_sum(mesh.plan.row_ptr, mesh.plan.slots, rows, mesh.nv),
+          assembly.segment_sum_plain(mesh.plan, rows))
+    blk = torch.einsum("eikr,eiks->ekrs", c.Gw, c.Gw).reshape(-1, 4).contiguous()
+    check(cuda.segment_sum(mesh.plan.row_ptr, mesh.plan.slots, blk, mesh.nv),
+          assembly.segment_sum_plain(mesh.plan, blk))
+    R, S = rotation.polar22(tmesh.def_grad(mesh, x))
+    D = rotation.dsdF22(R, S).contiguous()
+    Hs = torch.randn(mesh.nelem, 3, 3, generator=g, device=card, dtype=dtype)
+    for a, b in zip(cuda.contract_G_Gw(D, mesh.dphidX, Hs, mesh.vols),
+                    smallops.contract_G_Gw_plain(D, mesh.dphidX, Hs, mesh.vols)):
+        check(a, b)
+    assert dict(cuda.LAUNCHES) == {"element_apply_k3d2": 1, "segment_sum_m2": 1,
+                                   "segment_sum_m4": 1, "contract_G_Gw_n3": 1}
+
+
+def _tri_k3_inputs(E, dtype, device, seed=0, offset=0):
+    """Random triangle K3 inputs for E elements (positive areas); with
+    offset > 0 each lies `offset` elements into its own buffer, a
+    contiguous view that is not 16-byte aligned."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for shape in ((E, 3, 2, 2), (E, 3, 2), (E, 3, 3), (E,)):
+        a = rng.standard_normal(shape)
+        if len(shape) == 1:
+            a = np.abs(a) + 0.1
+        buf = torch.zeros(a.size + offset, dtype=dtype, device=device)
+        buf[offset:] = torch.tensor(a.reshape(-1), dtype=dtype, device=device)
+        out.append(buf[offset:].view(shape))
+    return out
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_tri_kernels_off_the_tile(card, dtype, offset):
+    """K3 (N=3) at E = 1, 31, 33, 103 and 100,003 (one element, a tile one
+    short, a tile and one, partial last tiles; 2D rows of 48 and 72 bytes
+    in float32 end their spans off 16 bytes), from aligned and misaligned
+    buffers; K1 (k=3, d=2) at the same counts."""
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    for E in (1, 31, 33, 103, 100003):
+        ins = _tri_k3_inputs(E, dtype, card, seed=E, offset=offset)
+        _check_k3(cuda.contract_G_Gw(*ins),
+                  smallops.contract_G_Gw_plain(*ins), tol)
+        g = torch.Generator(device=card).manual_seed(E)
+        nv = E + 2
+        T = torch.randint(0, nv, (E, 3), generator=g, device=card,
+                          dtype=torch.int32)
+        Gw = torch.randn(E, 3, 3, 2, generator=g, device=card, dtype=dtype)
+        mass = torch.randn(E, 3, 3, generator=g, device=card, dtype=dtype)
+        fm = (torch.rand(nv, generator=g, device=card) > 0.2).to(dtype)
+        p = torch.randn(nv, 2, generator=g, device=card, dtype=dtype)
+        got = cuda.element_apply(T, Gw, mass, fm, p)
+        ref = top.element_apply_plain(T, Gw, mass, fm, p)
+        torch.cuda.synchronize()
+        assert (got - ref).abs().max().item() <= tol * ref.abs().max().item()
+
+
+def test_tri_wrappers_refuse_other_shapes(card):
+    """No instance, no launch: a wrapper raises for an element shape the
+    kernels have no instance of, and never hands it to the plain version."""
+    f = lambda *s: torch.zeros(s, device=card)  # noqa: E731
+    T = torch.zeros((2, 3), dtype=torch.int32, device=card)
+    cuda.LAUNCHES.clear()
+    with pytest.raises(ValueError, match="instances"):
+        cuda.element_apply(T, f(2, 3, 3, 3), f(2, 3, 3), f(5), f(5, 3))
+    with pytest.raises(ValueError, match="instances"):
+        cuda.contract_G_Gw(f(2, 6, 2, 2), f(2, 4, 2), f(2, 6, 6), f(2))
+    with pytest.raises(ValueError):
+        cuda.element_apply(T, f(2, 3, 3, 3), f(2, 3, 3), f(5), f(5, 2))
+    with pytest.raises(ValueError, match="tets only"):
+        cuda.contract_G_Gw_tile(f(2, 3, 2, 2), f(2, 3, 2), f(2, 3, 3), f(2), 32)
+    assert sum(cuda.LAUNCHES.values()) == 0
+
+
+def test_tri_step_on_card_matches_cpu(card):
+    """Two float64 steps of a 200-triangle cantilever with the two-level
+    preconditioner: the card (every triangle kernel launched) against the
+    CPU (plain versions)."""
+    V, T, kw, _ = tri_arrays()
+    cfg = SimConfig(h=DT, outer_steps=3, newton_tol=0.0, coarse_refresh_every=2)
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        mesh = tmesh.build_mesh_data(V, T, dtype=torch.float64, device=dev, **kw)
+        cs = tcoarse.build_coarse_space(V, T, kw["is_fixed"], target_size=8,
+                                        dtype=torch.float64, device=dev)
+        x0 = torch.tensor(V, dtype=torch.float64, device=dev)
+        v0 = torch.zeros_like(x0)
+        v0[:, 1] = -2.0 * x0[:, 0] / 4.0
+        st = newton.init_state(mesh, cfg, (), x0, v0)
+        cuda.LAUNCHES.clear()
+        for _ in range(2):
+            st = newton.newton_step(mesh, cfg, (), st, cs)
+        out[dev.type] = (st, dict(cuda.LAUNCHES))
+    (g, launches), (c, none) = out["cuda"], out["cpu"]
+    assert not none
+    for k in ("element_apply_k3d2", "contract_G_Gw_n3", "segment_sum_m2",
+              "segment_sum_m4", "segment_sum_m6", "segment_sum_m36"):
+        assert launches.get(k, 0) > 0, k
+    np.testing.assert_allclose(g.x.cpu().numpy(), c.x.numpy(), rtol=0,
+                               atol=1e-9 * c.x.abs().max().item())
+    assert g.stats.solver_iters.tolist() == c.stats.solver_iters.tolist()
+
+
+def test_float32_tri_step_repeats_on_card(card):
+    """chip_smoke.py phase 14's step (the 100k-triangle cantilever, f32, 5
+    Newton iterations, the two-level coarse space): two runs from the same
+    state agree bit for bit."""
+    mesh, cs = _tri_beam(400, 125, torch.float32, card)
+    cfg = SimConfig(h=DT, outer_steps=5, newton_tol=0.0, itr_tol=1e-4,
+                    coarse_refresh_every=10, dtype="float32")
+    runs = []
+    for _ in range(2):
+        st = newton.init_state(mesh, cfg, (), mesh.V0.clone(),
+                               torch.zeros_like(mesh.V0))
+        st = newton.newton_step(mesh, cfg, (), st, cs)
+        runs.append(st)
+    assert torch.equal(runs[0].x, runs[1].x)
+    assert torch.equal(runs[0].stats.energy, runs[1].stats.energy)
+    assert runs[0].stats.solver_iters.tolist() == runs[1].stats.solver_iters.tolist()

@@ -10,9 +10,16 @@ from pathlib import Path
 
 import pytest
 
+from torch_parity import one_torch_thread  # noqa: F401 (a fixture)
+
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "mixedfem_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "mixedfem_tpu")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread(one_torch_thread):
+    """Every test of this module runs on one torch intra-op thread."""
 
 
 def _sources():

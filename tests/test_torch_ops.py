@@ -24,7 +24,13 @@ from mixedfem_tpu_torch.ops import psd as tpsd
 from mixedfem_tpu_torch.ops import rotation as trot
 from mixedfem_tpu_torch.ops import sym as tsym
 
-from torch_parity import close, t64
+from torch_parity import close, one_torch_thread, t64  # noqa: F401
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread(one_torch_thread):
+    """Every test of this module runs on one torch intra-op thread."""
+
 
 _jacobi = jax.jit(jrot.jacobi_eigh, static_argnames="sweeps")
 _polar33 = jax.jit(jrot.polar33, static_argnames="sweeps")

@@ -35,6 +35,12 @@ from torch_parity import (  # noqa: F401 (one_torch_thread is a fixture)
     CPU, close, one_torch_thread, t64, to_numpy,
 )
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread(one_torch_thread):
+    """Every test of this module runs on one torch intra-op thread."""
+
+
 STEPS = 3
 
 
@@ -324,7 +330,7 @@ def test_initial_state_resume(tmp_path):
 
 
 @pytest.mark.parametrize("extra,dim", [
-    ({}, 2),
+    ({"variables": ["stretch"]}, 2),
     ({"linear_solver": "eigen-llt"}, 3),
     ({"linear_solver": "subspace-gauss_seidel"}, 3),
 ])

@@ -30,7 +30,15 @@ from mixedfem_tpu_torch.solvers import coarse as tcoarse
 from mixedfem_tpu_torch.variables import displacement as tdisp
 from mixedfem_tpu_torch.variables import mixed_stretch as tms
 
-from torch_parity import CPU, beam_arrays, close, port, t64, to_numpy
+from torch_parity import (  # noqa: F401 (one_torch_thread is a fixture)
+    CPU, beam_arrays, close, one_torch_thread, port, t64, to_numpy,
+)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread(one_torch_thread):
+    """Every test of this module runs on one torch intra-op thread."""
+
 
 DT = 0.02
 STEP = dict(

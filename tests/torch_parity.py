@@ -1,8 +1,9 @@
 """Shared fixtures of the parity tests between mixedfem_tpu (JAX) and
-mixedfem_tpu_torch (PyTorch): one small beam built by both packages from
-the same host arrays, two contact scenes written as scene files, and the
-numpy hand-over of JAX dataclasses that mixedfem_tpu_torch.convert takes.
-Nothing here imports JAX, so the card tests use it too."""
+mixedfem_tpu_torch (PyTorch): one small beam (3D tets) and one small 2D
+cantilever (triangles) built by both packages from the same host arrays,
+contact scenes written as scene files, and the numpy hand-over of JAX
+dataclasses that mixedfem_tpu_torch.convert takes. Nothing here imports
+JAX, so the card tests use it too."""
 
 from __future__ import annotations
 
@@ -18,13 +19,14 @@ from mixedfem_tpu_torch import convert
 CPU = torch.device("cpu")
 
 
-@pytest.fixture
+@pytest.fixture(scope="module")
 def one_torch_thread():
-    """One intra-op thread for the test. The suite runs in several worker
+    """One intra-op thread for the tests of a module (each port test module
+    takes it through an autouse fixture). The suite runs in several worker
     processes on shared cores; torch's intra-op threads in each of them
-    then oversubscribe the cores and stall on their barriers, and the
-    contact tests, which run tens of thousands of small ops, slow down
-    by two orders of magnitude."""
+    then oversubscribe the cores and stall on their barriers, and tests
+    that run tens of thousands of small ops slow down by two orders of
+    magnitude."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
@@ -51,6 +53,33 @@ def beam_arrays(nx=6, ny=4, nz=3, seed=None):
         models=("Stable-Neohookean",),
         is_fixed=is_fixed,
         ext_force=np.tile(np.array([0.0, -9.8, 0.0]), (len(V), 1)),
+    )
+    x = V.copy()
+    if seed is not None:
+        rng = np.random.default_rng(seed)
+        x = V + 0.02 * rng.standard_normal(V.shape) * (~is_fixed)[:, None]
+    return V, T, kw, x
+
+
+def tri_arrays(nx=20, ny=5, seed=None):
+    """Host arrays of the beam's 2D counterpart at a small size:
+    grid_tri_mesh(nx, ny) over (4, 1), x=0 edge pinned, gravity, SNH
+    (E=1e6, nu=0.45, rho=1000). `seed` perturbs the free positions for a
+    deformed state."""
+    from mixedfem_tpu_torch.config import enu_to_lame
+    from mixedfem_tpu_torch.mesh import generators
+
+    V, T = generators.grid_tri_mesh(nx, ny, size=(4.0, 1.0))
+    la, mu = enu_to_lame(1e6, 0.45)
+    is_fixed = V[:, 0] < 1e-9
+    kw = dict(
+        density=np.full(len(T), 1000.0),
+        mu=np.full(len(T), mu),
+        lam=np.full(len(T), la),
+        model_id=np.zeros(len(T), int),
+        models=("Stable-Neohookean",),
+        is_fixed=is_fixed,
+        ext_force=np.tile(np.array([0.0, -9.8]), (len(V), 1)),
     )
     x = V.copy()
     if seed is not None:
@@ -137,3 +166,40 @@ def write_drop_scene(d, dhat=3e-2, newton=3):
         (0.3, 0.27, 0.3), {"type": "hangends", "axis": 1, "ratio": 2.0},
         dhat=dhat, max_newton_iterations=newton,
         iterative_solver_tolerance=1e-8)
+
+
+def write_tri_scene(d, objects, **extra):
+    """A 2D scene in directory `d` (a pathlib.Path): each entry of `objects`
+    is (name, (V, T), scene object dict); the meshes are written as
+    <name>.obj, and the scene JSON (keys `extra`) as scene2d.json, whose
+    path is returned."""
+    from mixedfem_tpu_torch.io import mesh_io
+
+    objs = []
+    for name, (V, T), obj in objects:
+        mesh_io.write_obj(str(d / f"{name}.obj"), V, T)
+        objs.append(dict(obj, path=f"{name}.obj"))
+    scene = {"dt": 0.01, "material_models": [SNH_04], "objects": objs}
+    scene.update(extra)
+    path = d / "scene2d.json"
+    path.write_text(json.dumps(scene))
+    return str(path)
+
+
+def write_tri_drop_scene(d, dhat=3e-2, newton=3, **extra):
+    """The 2D drop scene of tests/test_collision.py (drop_scene(dim=2)): a
+    slab grid_tri_mesh(4, 1) over (1, 0.2), pinned whole (hangends along y
+    with ratio 2), and a box grid_tri_mesh(2, 1) over (0.3, 0.15) at
+    (0.35, 0.23), as .obj files; a JSON without mixed_variables (the loader
+    adds mixed-collision), CCD on, kappa 1e5, itr_tol 1e-8."""
+    from mixedfem_tpu_torch.mesh import generators
+
+    return write_tri_scene(
+        d,
+        [("slab", generators.grid_tri_mesh(4, 1, size=(1.0, 0.2)),
+          {"normalize": False, "boundary_condition":
+           {"type": "hangends", "axis": 1, "ratio": 2.0}}),
+         ("box", generators.grid_tri_mesh(2, 1, size=(0.3, 0.15)),
+          {"normalize": False, "offset": [0.35, 0.23, 0.0]})],
+        enable_ccd=True, dhat=dhat, kappa=1e5, max_newton_iterations=newton,
+        iterative_solver_tolerance=1e-8, **extra)
