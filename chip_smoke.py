@@ -121,9 +121,33 @@ failure:
    tests/test_collision.py with contact, 3 Newton iterations: positions
    agree to 1e-9 of scale; Newton counts, CG counts and (with contact)
    active frames per iteration are equal.
-17. one JSON line of kernel results (the 2D instances and widths with
-   launches_by_path for tri_step and tri_contact_step), then the device
-   line last.
+17. the solver family at full width: phase 4's 100k-tet beam (banded
+   element order, its incidence plan, so that the condensed matvec is K1 +
+   K2; float32, no coarse space, as load_scene gives every solver but
+   pcg) through newton_step with minres-kkt, dual-cg and pcg-laplacian
+   (one warm-up and three timed steps each) and pcg-diag, gauss-seidel,
+   admm and minres-kkt-admm (one timed step each); then phase 11's 92k-tet
+   contact scene through load_scene with eigen-pcg-dualascent and
+   minres-indefinite-block (one warm-up and one timed step each; a kept
+   step's least mixed distance must be > 0; eigen-pcg-dualascent keeps no
+   step on this scene, as its dual-ascent loop diverges, PERF.md, and is
+   logged so). For each name: ms per step and per Newton
+   iteration, solver iterations per Newton, the last decrement, and the
+   K1-K4 launch counts, set to 0 just before and read just after (K2 and
+   K3 must run for every name, K1 for pcg-laplacian, pcg-diag and
+   gauss-seidel); one JSON line {"solvers": ...} of them.
+18. solver-family trajectories, float64, card against CPU, 3 steps: the
+   eight new names on a 1000-tet beam through newton_step, and the drop
+   scene through load_scene with eigen-pcg-dualascent,
+   minres-indefinite-block, subspace-CG and admm-solver (ADMM capped at
+   40 sweeps a Newton iteration): positions agree to 1e-9 of scale,
+   Newton counts (and active frames) are equal, Gauss-Seidel's and ADMM's
+   sweeps are equal, and the Krylov counts, which rounding decides on
+   these systems (tests/solver_parity.py), agree to 2% on the beam and
+   10% with contact.
+19. one JSON line of kernel results (the 2D instances and widths with
+   launches_by_path for tri_step and tri_contact_step, and for each
+   solver of phase 17), then the device line last.
 
 --profile DIR additionally traces one more step of each main path with
 torch.profiler, logs the device time of each hand kernel in it, and writes
@@ -1164,6 +1188,241 @@ def tri_trajectory():
             raise AssertionError("CG or Newton counts differ")
 
 
+# ---------------------------------------------------------------------------
+# phases 17 and 18: the solver family
+# ---------------------------------------------------------------------------
+
+# phase 17's beam solvers and their timed steps (each after one warm-up
+# step where it has three)
+SOLVER_STEPS = {"minres-kkt": 3, "dual-cg": 3, "pcg-laplacian": 3,
+                "pcg-diag": 1, "gauss-seidel": 1, "admm": 1,
+                "minres-kkt-admm": 1}
+CONTACT_SOLVERS = ("eigen-pcg-dualascent", "minres-indefinite-block")
+# the kernels that must launch on each beam solver's run, beside K2 and K3
+NEEDS_K1 = ("pcg-laplacian", "pcg-diag", "gauss-seidel")
+# card against CPU: the Krylov counts of these paths are decided by
+# rounding (tests/solver_parity.py): 2% on the beam, 10% with contact
+KRYLOV_BAND = 0.02
+CONTACT_BAND = 0.1
+
+
+def kernel_counts(launches) -> dict:
+    """The launch counts of K1-K4 (each instance and width summed)."""
+    out = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+    for k, n in launches.items():
+        key = ("K1" if k.startswith("element_apply")
+               else "K2" if k.startswith("segment_sum")
+               else "K3" if k.startswith("contract_G_Gw")
+               else "K4" if k.startswith("banded_sum") else None)
+        if key:
+            out[key] += n
+    return out
+
+
+def solver_report(name, states, times, launches, warm):
+    """Log one solver's run: ms per step and per Newton iteration, solver
+    iterations per Newton, the last decrement and the launch counts; check
+    finite positions and decreasing energies. `states`/`times` are the
+    timed steps; `warm` says whether a warm-up step ran before them."""
+    newton_its = sum(st.stats.iterations for st in states)
+    solver_its = sum(sum(st.stats.solver_iters[:st.stats.iterations].tolist())
+                     for st in states)
+    last = states[-1]
+    dec = (float(last.stats.decrement[last.stats.iterations - 1])
+           if last.stats.iterations else None)
+    counts = kernel_counts(launches)
+    for k, (st, ms) in enumerate(zip(states, times)):
+        log(f"  {name} step {k + 1}: {ms:.3f} ms, {describe(st)}")
+        if st.stats.iterations:
+            check_energies(st)
+        if not torch.isfinite(st.x).all():
+            raise AssertionError(f"{name}: non-finite positions")
+    per = (lambda v: v / newton_its) if newton_its else (lambda v: None)
+    out = dict(ms_per_step=sum(times) / len(times),
+               ms_per_newton=per(sum(times)),
+               solver_iters_per_newton=per(solver_its),
+               last_decrement=dec, timed_steps=len(times),
+               warm_up=warm, launches=counts)
+    log(f"  {name}: ms_per_step {out['ms_per_step']:.3f}, ms per Newton "
+        f"iteration {out['ms_per_newton']}, solver iterations per Newton "
+        f"{out['solver_iters_per_newton']}, last decrement {dec}, launches "
+        f"over {len(times) + warm} steps {counts}")
+    return out
+
+
+def solver_family_beam(mesh, config, state):
+    """Phase 17's beam: each solver of SOLVER_STEPS through newton_step
+    with no coarse space, from the same initial state; counters set to 0
+    just before each solver's run and read just after."""
+    import dataclasses
+
+    from mixedfem_tpu_torch import cuda
+    from mixedfem_tpu_torch.optimizer import newton
+    from mixedfem_tpu_torch.solvers import gauss_seidel as gsmod
+
+    t0 = time.perf_counter()
+    gs_plan = gsmod.build_gs_plan(mesh.T.cpu().numpy(), mesh.nv,
+                                  dtype=mesh.vols.dtype, device="cuda")
+    log(f"  vertex coloring: {gs_plan.ncolors} colors in "
+        f"{time.perf_counter() - t0:.1f} s (host)")
+    results = {}
+    for name, timed in SOLVER_STEPS.items():
+        cfg = dataclasses.replace(config, solver=name)
+        st = state
+        cuda.LAUNCHES.clear()
+        torch.cuda.synchronize()
+        if timed > 1:
+            t0 = time.perf_counter()
+            st = newton.newton_step(mesh, cfg, (), st, gs_plan=gs_plan)
+            torch.cuda.synchronize()
+            log(f"  {name} warm-up step {(time.perf_counter() - t0) * 1e3:.1f}"
+                f" ms: {describe(st)}")
+        states, times = [], []
+        for _ in range(timed):
+            t0 = time.perf_counter()
+            st = newton.newton_step(mesh, cfg, (), st, gs_plan=gs_plan)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            states.append(st)
+        launches = dict(cuda.LAUNCHES)
+        results[name] = solver_report(name, states, times, launches,
+                                      timed > 1)
+        results[name]["launches_by_kernel"] = launches
+        c = results[name]["launches"]
+        missing = [k for k in ("K2", "K3") + (("K1",) if name in NEEDS_K1
+                                              else ()) if c[k] == 0]
+        if missing:
+            raise AssertionError(f"{name}: kernels not launched: {missing}")
+    return results
+
+
+def solver_family_contact(path):
+    """Phase 17's contact scene with each of CONTACT_SOLVERS through
+    load_scene and Simulation.step: one warm-up and one timed step,
+    counters set to 0 just before and read just after; the least mixed
+    distance must be > 0."""
+    from mixedfem_tpu_torch import cuda
+    from mixedfem_tpu_torch.io.scene import load_scene
+
+    results = {}
+    for name in CONTACT_SOLVERS:
+        sim = load_scene(path, dim=3, dtype="float32", device="cuda",
+                         overrides={"linear_solver": name})
+        states, times = [], []
+        cuda.LAUNCHES.clear()
+        torch.cuda.synchronize()
+        for _ in range(2):
+            t0 = time.perf_counter()
+            sim.step()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            states.append(sim.state)
+        launches = dict(cuda.LAUNCHES)
+        log(f"  {name} warm-up step {times[0]:.1f} ms: {describe(states[0])}")
+        r = solver_report(name, states[1:], times[1:], launches, True)
+        ran = [st for st in states if st.stats.iterations]
+        dmin = min((st.stats.min_distance[:st.stats.iterations].min().item()
+                    for st in ran), default=math.inf)
+        active = max((int(st.stats.active_frames[:st.stats.iterations].max())
+                      for st in ran), default=0)
+        log(f"  {name}: candidates {sim.state.contact.nreal}, most active "
+            f"frames {active}, min mixed distance {dmin:.6e}, retries "
+            f"{sim.retries}, steps kept {len(ran)} of 2")
+        if name == "eigen-pcg-dualascent" and not ran:
+            # every attempt of both steps moved past its candidate margin
+            # and Simulation.step handed back the pre-step state: the
+            # dual-ascent loop, as the JAX package writes it, grows
+            # geometrically on this scene (PERF.md, PR 9)
+            log(f"  {name}: no step kept (4 attempts each); the pre-step "
+                f"state stands")
+        elif not (active > 0 and 0 < dmin < math.inf):
+            raise AssertionError(f"{name}: no feasible contact ({active} "
+                                 f"active frames, min distance {dmin})")
+        c = r["launches"]
+        if c["K2"] == 0 or c["K3"] == 0:
+            raise AssertionError(f"{name}: K2 or K3 not launched: {c}")
+        r.update(launches_by_kernel=launches, retries=sim.retries,
+                 steps_kept=len(ran), active_frames=active,
+                 min_mixed_distance=dmin if ran else None)
+        results[name] = r
+        del sim
+    return results
+
+
+def band_ok(a, b, frac) -> bool:
+    """Equal counts, or within frac of the larger (at least 1)."""
+    return all(x == y or (frac and abs(x - y) <= max(1, math.ceil(frac * max(x, y))))
+               for x, y in zip(a, b))
+
+
+def solver_trajectories():
+    """Phase 18: every new beam solver on a 1000-tet beam for 3 float64
+    steps of 3 Newton iterations, on the card and on the CPU (the same
+    start; the Laplacian's power-iteration start drawn on the CPU for
+    both)."""
+    import dataclasses
+
+    from mixedfem_tpu_torch.optimizer import newton
+    from mixedfem_tpu_torch.solvers import gauss_seidel as gsmod
+
+    names = ("pcg-diag", "pcg-laplacian", "pcg-dualascent", "gauss-seidel",
+             "minres-kkt", "minres-kkt-admm", "dual-cg", "admm")
+    built = {dev: beam(10, 5, 4, torch.float64, dev) for dev in ("cuda", "cpu")}
+    for name in names:
+        out = {}
+        for dev, (mesh, config, state, _) in built.items():
+            cfg = dataclasses.replace(config, outer_steps=3, solver=name)
+            gs = gsmod.build_gs_plan(mesh.T.cpu().numpy(), mesh.nv,
+                                     dtype=torch.float64, device=dev)
+            st, out[dev] = state, []
+            for _ in range(3):
+                st = newton.newton_step(mesh, cfg, (), st, gs_plan=gs)
+                out[dev].append(st)
+        exact = name in ("gauss-seidel", "admm")
+        for k, (g, c) in enumerate(zip(out["cuda"], out["cpu"])):
+            scale = c.x.abs().max().item()
+            err = (g.x.cpu() - c.x).abs().max().item()
+            ng, nc = g.stats.solver_iters.tolist(), c.stats.solver_iters.tolist()
+            log(f"  {name} step {k}: max |x_card - x_cpu| {err:.3e} (scale "
+                f"{scale:.3f}), solver iterations card {ng} cpu {nc}")
+            if not err <= 1e-9 * scale:
+                raise AssertionError(f"{name}: the card leaves the CPU")
+            if g.stats.iterations != c.stats.iterations or not band_ok(
+                    ng, nc, 0.0 if exact else KRYLOV_BAND):
+                raise AssertionError(f"{name}: Newton or solver counts differ")
+
+
+def solver_contact_trajectories(path):
+    """Phase 18 with contact: the drop scene with each contact solver
+    (ADMM capped at 40 sweeps a Newton iteration), 3 float64 steps on the
+    card and on the CPU (the same loaded objects moved there)."""
+    from mixedfem_tpu_torch.device import to_device
+    from mixedfem_tpu_torch.io.scene import load_scene
+
+    for name, over in (("eigen-pcg-dualascent", {}),
+                       ("minres-indefinite-block", {}), ("subspace-CG", {}),
+                       ("admm-solver", {"max_iterative_solver_iters": 40})):
+        card = load_scene(path, dim=3, dtype="float64", device="cuda",
+                          overrides=dict(over, linear_solver=name))
+        cpu = to_device(card, "cpu")
+        for k in range(3):
+            g, c = card.step(), cpu.step()
+            scale = c.x.abs().max().item()
+            err = (g.x.cpu() - c.x).abs().max().item()
+            ng, nc = g.stats.solver_iters.tolist(), c.stats.solver_iters.tolist()
+            ag, ac = g.stats.active_frames.tolist(), c.stats.active_frames.tolist()
+            log(f"  {name} step {k}: max |x_card - x_cpu| {err:.3e} (scale "
+                f"{scale:.3f}), solver iterations card {ng} cpu {nc}, active "
+                f"frames card {ag} cpu {ac}")
+            if not err <= 1e-9 * scale:
+                raise AssertionError(f"{name}: the card leaves the CPU")
+            if (g.stats.iterations != c.stats.iterations or ag != ac
+                    or not band_ok(ng, nc, 0.0 if name == "admm-solver"
+                                   else CONTACT_BAND)):
+                raise AssertionError(f"{name}: Newton, solver or active-frame "
+                                     f"counts differ")
+
+
 def profile_step(step, out_dir, name, untraced_ms):
     """Trace one more step (`step()` runs it) with torch.profiler: device
     busy time against the step's wall time, host and device time per span,
@@ -1467,7 +1726,23 @@ def main() -> int:
         log("  the 2D drop scene with contact")
         contact_trajectory(write_tri_drop_scene(d), dim=2)
 
-    log("phase 17: results")
+    log("phase 17: the solver family, 100k-tet beam and 92k-tet contact "
+        "scene, float32")
+    t0 = time.perf_counter()
+    mesh, config, state, _ = beam(40, 25, 20, torch.float32, "cuda")
+    log(f"  beam built in {time.perf_counter() - t0:.1f} s: E {mesh.nelem} "
+        f"nv {mesh.nv}, no coarse space")
+    solver_results = solver_family_beam(mesh, config, state)
+    del mesh, state
+    with tempfile.TemporaryDirectory() as d:
+        solver_results.update(solver_family_contact(write_contact_scene(d)))
+
+    log("phase 18: float64 solver-family trajectories, card against CPU")
+    solver_trajectories()
+    with tempfile.TemporaryDirectory() as d:
+        solver_contact_trajectories(write_drop_scene(d))
+
+    log("phase 19: results")
     replaces = {c["name"]: c["replaces"] for c in cases32 + k4_scene
                 + tri32 + k4_tri}
     replaces.update({t["name"]: "mixedfem_tpu/ops/stencil.py:" + (
@@ -1484,6 +1759,8 @@ def main() -> int:
                    "contact_step": contact_launches.get(name, 0),
                    "tri_step": tri_launches.get(name, 0),
                    "tri_contact_step": tcontact_launches.get(name, 0)}
+        by_path.update({f"solver {n}": r["launches_by_kernel"].get(name, 0)
+                        for n, r in solver_results.items()})
         if t["key"] in tri_keys:
             # the 2D path that carries the instance: K4 the contact
             # scene's, K1-K3 the triangle beam's (phase 14)
@@ -1542,6 +1819,9 @@ def main() -> int:
         f"grid ms_per_step {grid_ms:.3f}, contact ms_per_step {contact_ms:.3f}, "
         f"2D ms_per_step {tri_ms:.3f}, 2D contact ms_per_step "
         f"{tcontact_ms:.3f}")
+    log(json.dumps({"solvers": {
+        n: {k: v for k, v in r.items() if k != "launches_by_kernel"}
+        for n, r in solver_results.items()}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

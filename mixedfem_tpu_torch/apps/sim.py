@@ -32,8 +32,9 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default cuda)")
     ap.add_argument("--solver", default=None,
-                    help="override the scene's linear_solver (any reference "
-                         "factory name or internal path name)")
+                    help="override the scene's linear_solver: a reference "
+                         "factory name or an internal path name of "
+                         "solvers/factory.py (the on-device paths run)")
     args = ap.parse_args(argv)
 
     from mixedfem_tpu_torch.io import mesh_io

@@ -1,6 +1,7 @@
 """Carry the JAX package's mesh, state (contact frames included),
 coarse space (geometric or grid), boundary conditions, press controllers,
-banded plan and stencil plan across to the port.
+banded plan, stencil plan, Gauss-Seidel coloring and the Laplacian
+preconditioner's power-iteration start vector across to the port.
 
 The JAX objects are handed over as dicts of numpy arrays (one entry per
 dataclass field, nested dataclasses as nested dicts, static fields such as
@@ -25,6 +26,7 @@ from mixedfem_tpu_torch.ops.banded_scatter import plan_from_arrays
 from mixedfem_tpu_torch.ops.stencil import StencilPlan, plan_from_terms
 from mixedfem_tpu_torch.optimizer.newton import SimState, StepStats
 from mixedfem_tpu_torch.solvers.coarse import CoarseSpace, coarse_from_arrays
+from mixedfem_tpu_torch.solvers.gauss_seidel import GSPlan
 from mixedfem_tpu_torch.solvers.operator import BandedPlan
 from mixedfem_tpu_torch.variables.mixed_collision import contact_frames
 
@@ -167,3 +169,20 @@ def stencil_plan_from_numpy(d: Mapping, device) -> StencilPlan:
         int(d["NI"]), int(d["NJ"]), int(d["NK"]), int(d["nslots"]),
         d["terms"], d["vec_terms"], d["masks"], resolve_device(device),
     )
+
+
+def gs_plan_from_numpy(d: Mapping, dtype, device) -> GSPlan:
+    """The JAX GSPlan (masks (C, nv), ncolors)."""
+    return GSPlan(
+        masks=torch.tensor(np.asarray(d["masks"]), dtype=dtype,
+                           device=resolve_device(device)),
+        ncolors=int(d["ncolors"]),
+    )
+
+
+def power_start_from_numpy(v, dtype, device) -> torch.Tensor:
+    """A power-iteration start vector (nv, d), such as the one the JAX
+    step draws (mixedfem_tpu/solvers/laplacian.py:power_lmax), for
+    SimState.power_v0 or laplacian.power_lmax."""
+    return torch.tensor(np.asarray(v), dtype=dtype,
+                        device=resolve_device(device))

@@ -15,11 +15,13 @@ mixed-collision (IPC contact), as in the JAX package.
 
 On the card the loader mirrors the JAX package's accelerator choices:
 elements in banded order (sorted by min vertex id) and a banded plan for
-scenes of 2000 elements or more, so every assembly and CG matvec goes
-through kernel K4; a two-level coarse space (target 48) for such scenes
-with the 'pcg' solver. On the CPU the scene keeps its natural element
-order. Solvers other than pcg / pcg-block-jacobi raise
-NotImplementedError while the scene loads.
+scenes of 2000 elements or more, so every assembly and condensed matvec
+goes through kernel K4; a two-level coarse space (target 48) for such
+scenes with the 'pcg' solver only, and the vertex coloring (GSPlan) for
+'gauss-seidel'. On the CPU the scene keeps its natural element order. The
+host solvers ('direct', 'pcg-ic', 'amgcl'; the reference's default
+eigen-llt among their names) raise NotImplementedError while the scene
+loads.
 
 With contact, Simulation.step runs the host broadphase once per step
 (collision/broadphase.py: candidates_3d over the surface, candidates_2d
@@ -55,6 +57,7 @@ from mixedfem_tpu_torch.optimizer.newton import (
     SimState, check_supported, init_state, newton_step,
 )
 from mixedfem_tpu_torch.solvers import coarse as coarsemod
+from mixedfem_tpu_torch.solvers import gauss_seidel as gsmod
 from mixedfem_tpu_torch.solvers import operator as opmod
 from mixedfem_tpu_torch.solvers.factory import resolve_solver
 from mixedfem_tpu_torch.utils.skinning import apply_skinning, embed_in_tets
@@ -81,6 +84,7 @@ class Simulation:
     press_specs: Tuple = ()
     skinning: Tuple = ()  # per object (V_render, F_render, tet_id, bary)
     matvec_plan: Optional[opmod.BandedPlan] = None
+    gs_plan: Optional[gsmod.GSPlan] = None  # the 'gauss-seidel' coloring
     retries: int = 0  # contact steps re-run with a wider margin
 
     def skinned_surfaces(self):
@@ -93,7 +97,7 @@ class Simulation:
     def _one_step(self) -> SimState:
         return newton_step(
             self.mesh, self.config, self.bc_specs, self.state, self.coarse,
-            self.press_specs, self.matvec_plan,
+            self.press_specs, self.matvec_plan, self.gs_plan,
         )
 
     def step(self) -> SimState:
@@ -409,6 +413,10 @@ def load_scene(
             V, T, is_fixed, target_size=48, dtype=tdtype, device=dev
         )
 
+    gs_plan = None
+    if config.solver == "gauss-seidel":
+        gs_plan = gsmod.build_gs_plan(T, nv_total, dtype=tdtype, device=dev)
+
     # MechanicalPress controllers
     press_specs, press_states = [], []
     for ecfg, off_i, nvo in press_cfgs:
@@ -456,5 +464,5 @@ def load_scene(
         mesh=mesh, config=config, bc_specs=tuple(bc_specs), state=state,
         dim=dim, obj_slices=obj_slices, coarse=coarse,
         press_specs=tuple(press_specs), skinning=tuple(skinning),
-        matvec_plan=matvec_plan,
+        matvec_plan=matvec_plan, gs_plan=gs_plan,
     )

@@ -1,27 +1,45 @@
-"""Newton implicit time stepper (port of the generic pcg branch of
-mixedfem_tpu/optimizer/newton.py:newton_step).
+"""Newton implicit time stepper (port of
+mixedfem_tpu/optimizer/newton.py:newton_step and its on-device solve
+paths).
 
 One call is one implicit BDF step of a 3D tet or 2D triangle solid with
 the mixed-stretch variable and, when the state carries contact frames, IPC
 contact (the mixed-collision variable, the nodal collision barrier, lagged
 friction):
 
-  press forces -> lagged friction set -> [ update -> assemble -> PCG on
-    the condensed operator -> local (ds, la; dd, contact la) -> ACCD clamp
-    -> backtracking line search ] x <= outer_steps ->
+  press forces -> Laplacian setup -> lagged friction set -> [ update ->
+    assemble -> linear solve -> local (ds, la; dd, contact la) -> ACCD
+    clamp -> backtracking line search ] x <= outer_steps ->
   scripted BC motion -> press controllers -> BDF history push -> la = 0
 
+The linear solve is one of the JAX step's ten on-device paths
+(solvers/factory.py). The condensed family solves the SPD system in dx and
+recovers (ds, la) per element: CG preconditioned by block-Jacobi (with the
+two-level coarse space for 'pcg'), by the scalar diagonal ('pcg-diag'), by
+the Chebyshev (M + kL)^{-1} ('pcg-laplacian', solvers/laplacian.py) or its
+dual-ascent contact loop ('pcg-dualascent'), or multicolor Gauss-Seidel
+sweeps as the solver ('gauss-seidel', which needs a GSPlan). The
+full-system family solves for (dx, ds, dlam[, dd, dlc]) together: MINRES
+on the indefinite KKT system with a block-diagonal ('minres-kkt') or an
+ADMM ('minres-kkt-admm') preconditioner (solvers/minres.py,
+solvers/admm.py), CG on the dual Schur complement ('dual-cg',
+solvers/dual.py), or ADMM itself ('admm').
+
 Vertex sums go through the mesh's incidence plan (K2, and K1 + K2 for the
-CG matvec) or, when a banded plan is given (solvers/operator.py
-BandedPlan; the scene loader builds one on the card), through K4 (and
-K1 + K4 for the matvec), as the JAX step's `bassemble` and
-`banded_matvec` do. With a StencilPlan of a box grid (ops/stencil.py) the
-matvec is the lattice stencil K5 on blocks that K6 assembles once per
-Newton iteration: with no coarse space or a grid one the whole iteration
+condensed matvec and the Laplacian preconditioner's) or, when a banded
+plan is given (solvers/operator.py BandedPlan; the scene loader builds one
+on the card), through K4 (and K1 + K4 for those), as the JAX step's
+`bassemble` and `banded_matvec` do. With a StencilPlan of a box grid
+(ops/stencil.py) the matvec is the lattice stencil K5 on blocks that K6
+assembles once per Newton iteration: with no coarse space or a grid one,
+and 'pcg' or 'pcg-block-jacobi', the whole iteration
 follows the JAX step's row body (lattice CG, lattice preconditioner, the
-alpha-parametrized merit), with a geometric one, or with contact, the
-generic body (the configuration of the JAX package's entry()). Stencil
-plans are 3D only, as in the JAX package; 2D meshes run the generic body.
+alpha-parametrized merit), with a geometric one, with contact, or with a
+solver other than 'pcg' and 'pcg-block-jacobi', the generic body (the
+configuration of the JAX package's entry()). Stencil plans are 3D only,
+as in the JAX package; 2D meshes run the generic body. The full-system
+paths sum their x rows over the mesh's incidence plan whatever plan is
+given, as the JAX package's segment sums do.
 
 Contact sums go through incidence plans built on the host, K2 on the card,
 in a fixed order: frame corners to vertices through the frame plan built
@@ -29,20 +47,23 @@ with the candidates (variables/mixed_collision.py), and the coarse
 space's contact blocks to aggregate pairs through a pair plan of the
 frames active at the coarse refresh (solvers/coarse.py:contact_pairs).
 
-The Newton loop, the CG loop and the line search are host loops; each
-convergence test reads one scalar from the device. Each stage runs under a
-profiler span (`newton.coarse_refresh`, `newton.update`, `newton.pcg`,
-`newton.line_search`, and `newton.contact` around the contact work inside
-them: the frame updates, the contact merit terms and ACCD), which costs
-nothing unless torch.profiler is on. Paths the JAX step has and this port
-does not cover yet (vanilla stretch, f64 islands, warm-started rotations,
-other solvers) raise NotImplementedError.
+The Newton loop, the solver loops (CG, MINRES, GS sweeps, ADMM sweeps)
+and the line search are host loops; each convergence test reads one scalar
+from the device. The Chebyshev, dual-ascent and ADMM-inner loops have
+fixed lengths and read nothing. Each stage runs under a profiler span
+(`newton.coarse_refresh`, `newton.update`, `newton.pcg` around every
+linear solve, `newton.line_search`, and `newton.contact` around the
+contact work inside them: the frame updates, the contact merit terms and
+ACCD), which costs nothing unless torch.profiler is on. Paths the JAX step
+has and this port does not cover yet (vanilla stretch, f64 islands,
+warm-started rotations, the host solvers 'direct', 'pcg-ic' and 'amgcl')
+raise NotImplementedError.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -55,13 +76,16 @@ from mixedfem_tpu_torch.collision import distances as cdist
 from mixedfem_tpu_torch.config import SimConfig
 from mixedfem_tpu_torch.integrators import bdf as bdfmod
 from mixedfem_tpu_torch.mesh import mesh as meshmod
-from mixedfem_tpu_torch.ops import assembly
-from mixedfem_tpu_torch.ops import banded_scatter as bs
 from mixedfem_tpu_torch.ops import rotation
 from mixedfem_tpu_torch.ops import stencil as stmod
 from mixedfem_tpu_torch.ops import sym as symmod
+from mixedfem_tpu_torch.solvers import admm as admmmod
 from mixedfem_tpu_torch.solvers import coarse as coarsemod
+from mixedfem_tpu_torch.solvers import dual as dualmod
 from mixedfem_tpu_torch.solvers import factory
+from mixedfem_tpu_torch.solvers import gauss_seidel as gsmod
+from mixedfem_tpu_torch.solvers import laplacian as lapmod
+from mixedfem_tpu_torch.solvers import minres as mrmod
 from mixedfem_tpu_torch.solvers import operator as opmod
 from mixedfem_tpu_torch.solvers import pcg as pcgmod
 from mixedfem_tpu_torch.variables import collision as vcol
@@ -104,6 +128,10 @@ class SimState:
     # cached dense coarse inverse (ncd, ncd) when coarse_refresh_every > 1,
     # else (0, 0)
     precond: torch.Tensor
+    # the Laplacian preconditioner's power-iteration start vector (nv, d),
+    # drawn by the first step that needs it (laplacian.default_power_start)
+    # unless given, and carried from step to step
+    power_v0: Optional[torch.Tensor] = None
 
 
 def empty_stats(outer: int, dtype, device) -> StepStats:
@@ -186,9 +214,14 @@ _MIXED = ("mixed-stretch", "mixed-collision")
 _NODAL = ("collision", "friction")
 
 
+# the paths that solve for (dx, ds, dlam[, dd, dlc]) together
+FULL_SYSTEM = ("minres-kkt", "minres-kkt-admm", "dual-cg", "admm")
+
+
 def check_supported(config: SimConfig) -> str:
     """The solve path of `config`; raises NotImplementedError for what this
-    port does not cover."""
+    port does not cover (the host solvers among them, from
+    factory.resolve_solver)."""
     solver = factory.resolve_solver(config.solver)
     if "mixed-stretch" not in config.mixed_variables:
         raise NotImplementedError("this port needs the mixed-stretch variable")
@@ -205,18 +238,41 @@ def check_supported(config: SimConfig) -> str:
     return solver
 
 
-def _select_body(config: SimConfig, coarse, matvec_plan, contact: bool,
-                 dim: int) -> str:
+def check_state(solver: str, config: SimConfig, have_frames: bool,
+                gs_plan) -> None:
+    """The JAX step's refusals that depend on the state or the arguments:
+    nodal Hessians (collision, friction; they act only where the state has
+    frames) on the ADMM and dual-Schur paths, and Gauss-Seidel without its
+    coloring."""
+    nodal = have_frames and any(v in config.variables for v in _NODAL)
+    if solver in ("admm", "minres-kkt-admm") and nodal:
+        # the reference asserts that no nodal variable is present
+        raise NotImplementedError(
+            "the ADMM iteration handles mixed variables only")
+    if solver == "gauss-seidel" and gs_plan is None:
+        raise ValueError(
+            "solver 'gauss-seidel' needs a vertex coloring: pass "
+            "gs_plan=gauss_seidel.build_gs_plan(T, nv, ...)")
+    if solver == "dual-cg" and nodal:
+        raise NotImplementedError(
+            "dual-cg eliminates dx via the lumped mass; nodal-Hessian "
+            "variables (collision/friction) need 'pcg' or 'minres-kkt'")
+
+
+def _select_body(config: SimConfig, solver: str, coarse, matvec_plan,
+                 contact: bool, dim: int) -> str:
     """'grid', 'stencil' or 'generic', as the JAX step selects its Newton
-    body (mixedfem_tpu/optimizer/newton.py:387-405 and :611-633; contact
-    keeps the lattice body out); raises for the stencil branch this port
-    does not cover, and for a stencil plan of a 2D mesh, which the JAX
-    package's build_stencil_plan would not make."""
+    body (mixedfem_tpu/optimizer/newton.py:387-405 and :611-633): the
+    lattice body for 'pcg' and 'pcg-block-jacobi' only, and never with
+    contact; raises for the stencil branch this port does not cover, and
+    for a stencil plan of a 2D mesh, which the JAX package's
+    build_stencil_plan would not make."""
     if not isinstance(matvec_plan, stmod.StencilPlan):
         return "generic"
     if dim != 3:
         raise ValueError("a stencil plan of a 2D mesh: stencil plans are 3D")
-    if contact or (coarse is not None and coarse.grid is None):
+    if (contact or solver not in ("pcg", "pcg-block-jacobi")
+            or (coarse is not None and coarse.grid is None)):
         return "stencil"
     if config.inertia_blend_factor != 1.0:
         # the JAX step runs its element-major lattice-CG branch here
@@ -246,18 +302,24 @@ def newton_step(
     coarse: coarsemod.CoarseSpace | None = None,
     press_specs: Tuple[pressmod.PressSpec, ...] = (),
     matvec_plan: opmod.BandedPlan | stmod.StencilPlan | None = None,
+    gs_plan: gsmod.GSPlan | None = None,
 ) -> SimState:
     """One implicit BDF timestep. `coarse` enables the two-level
     rigid-body coarse preconditioner (solver 'pcg' only); `matvec_plan`
-    (operator.build_banded_plan) sends the CG matvec and the once-per-Newton
-    assemblies through the banded sum (K4 on the card), or, a StencilPlan
-    (stencil.build_stencil_plan) of a box grid in cell-major element order,
-    through the lattice stencil (K5, K6): with no coarse space or a grid
-    one (coarse.build_coarse_space_grid) the whole Newton iteration runs on
-    the lattice (the JAX step's row body), with a geometric coarse space
-    or with contact only the matvec and the assemblies do. Contact runs
-    over `state.contact` (Simulation.step builds it with the broadphase)."""
+    (operator.build_banded_plan) sends the condensed matvec and the
+    once-per-Newton assemblies through the banded sum (K4 on the card),
+    or, a StencilPlan (stencil.build_stencil_plan) of a box grid in
+    cell-major element order, through the lattice stencil (K5, K6): for
+    'pcg' and 'pcg-block-jacobi' with no coarse space or a grid one
+    (coarse.build_coarse_space_grid) the whole Newton iteration runs on
+    the lattice (the JAX step's row body), otherwise only the matvec and
+    the assemblies do. `gs_plan` (gauss_seidel.build_gs_plan) is required
+    by 'gauss-seidel'. Contact runs over `state.contact` (Simulation.step
+    builds it with the broadphase)."""
     solver = check_supported(config)
+    cf = state.contact
+    have_frames = cf.frames.shape[0] > 0
+    check_state(solver, config, have_frames, gs_plan)
     if config.rhs_precision == "float64" and state.x.dtype != torch.float64:
         raise NotImplementedError("rhs_precision='float64' islands")
     dt = bdfmod.bdf_dt(state.bdf)
@@ -276,18 +338,24 @@ def newton_step(
 
     def assemble(contrib):
         """(E, k, ...) corner contributions -> (nv, ...), in a fixed order."""
-        if not isinstance(matvec_plan, opmod.BandedPlan):
-            return assembly.segment_sum(mesh.plan, contrib)
-        trail = tuple(contrib.shape[2:])
-        rows = bs.pad_rows(matvec_plan, contrib.reshape(mesh.T.numel(), -1))
-        return bs.scatter_add_sorted(matvec_plan, rows).reshape(
-            (mesh.nv,) + trail
-        )
+        return opmod.assemble(mesh, matvec_plan, contrib)
 
     target = disp.target(mesh, bdf, blend=config.inertia_blend_factor)
 
-    cf = state.contact
-    have_frames = cf.frames.shape[0] > 0
+    # the Laplacian preconditioner's rest rows and power-iteration
+    # estimates of lmax(M) and lmax(L), once per step as in the JAX step
+    power_v0 = state.power_v0
+    if solver in ("pcg-laplacian", "pcg-dualascent"):
+        with record_function("newton.update"):
+            GwL = lapmod.laplacian_rows(mesh)
+            if power_v0 is None:
+                power_v0 = lapmod.default_power_start(state.x.shape, dtype, dev)
+            lap_lmax_m = lapmod.power_lmax(
+                lapmod.ml_operator(mesh, GwL, 0.0, plan=matvec_plan), power_v0)
+            lap_lmax_l = lapmod.power_lmax(
+                lapmod.ml_operator(mesh, GwL, 1.0, mass_scale=0.0,
+                                   plan=matvec_plan), power_v0)
+
     use_contact = "mixed-collision" in config.mixed_variables and have_frames
     use_vcollision = "collision" in config.variables and have_frames
     use_friction = "friction" in config.variables and have_frames
@@ -302,8 +370,9 @@ def newton_step(
 
     if solver != "pcg":
         coarse = None
-    body_kind = _select_body(config, coarse, matvec_plan, any_contact,
+    body_kind = _select_body(config, solver, coarse, matvec_plan, any_contact,
                              mesh.dim)
+    condensed = solver not in FULL_SYSTEM
     precond_out = state.precond
     Ac_inv = None
     if coarse is not None:
@@ -362,84 +431,90 @@ def newton_step(
                 e = e + h2 * fric.energy(ffr, x_t, config.contact_mu, epsv_h, dt)
             return e
 
-    def generic_body(x, s, cd, cla, cact):
+    def generic_body(x, s, la, cd, cla, cact):
         with record_function("newton.update"):
-            # --- assemble: inertia gradient, rhs, block-Jacobi blocks
-            b = -meshmod.project_free(mesh, assemble(disp.gradient_contrib(
-                mesh, bdf, x, blend=config.inertia_blend_factor
-            )))
             coeffs = ms.update(mesh, x, s, dt)
-            b = b + meshmod.project_free(
-                mesh, assemble(ms.rhs_contrib(mesh, coeffs, s))
-            )
-            if body_kind == "stencil":
-                # the offset-form blocks (K6); their o=0 plane is the exact
-                # block-Jacobi diagonal
-                W = stmod.assemble_W(matvec_plan, coeffs.Gw, mesh.mass_coeff)
-                blocks = stmod.diag_blocks(matvec_plan, W)
-            else:
-                blocks = mesh.mass_diag[:, None, None] * eye + assemble(
-                    ms.diag_blocks_contrib(mesh, coeffs)
+            if condensed:
+                # --- assemble: inertia gradient, rhs, block-Jacobi blocks
+                b = -meshmod.project_free(mesh, assemble(disp.gradient_contrib(
+                    mesh, bdf, x, blend=config.inertia_blend_factor
+                )))
+                b = b + meshmod.project_free(
+                    mesh, assemble(ms.rhs_contrib(mesh, coeffs, s))
                 )
+                if body_kind == "stencil":
+                    # the offset-form blocks (K6); their o=0 plane is the
+                    # exact block-Jacobi diagonal
+                    W = stmod.assemble_W(matvec_plan, coeffs.Gw,
+                                         mesh.mass_coeff)
+                    blocks = stmod.diag_blocks(matvec_plan, W)
+                else:
+                    blocks = mesh.mass_diag[:, None, None] * eye + assemble(
+                        ms.diag_blocks_contrib(mesh, coeffs)
+                    )
             with record_function("newton.contact"):
                 if use_contact:
                     cc = mc.update(mesh, cf, x, cd, cla, cact, dhat, kappa,
                                    ee_mollifier=config.ee_mollifier)
-                    b = b + mc.rhs(mesh, cf, cc)
-                    blocks = blocks + mc.diag_blocks(mesh, cf, cc)
                 if use_vcollision:
                     vcc = vcol.update(cf, x, dhat, kappa)
-                    b = b - vcol.gradient(mesh, cf, vcc)
-                    blocks = blocks + vcol.diag_blocks(mesh, cf, vcc)
                 if use_friction:
                     fcc = fric.update(ffr, x, config.contact_mu, epsv_h)
-                    b = b - fric.gradient(mesh, ffr, fcc)
-                    blocks = blocks + fric.diag_blocks(mesh, ffr, fcc)
-
-        with record_function("newton.pcg"):
-            # --- condensed SPD solve (K1 + K2, K1 + K4, or K5 matvec)
-            bj = pcgmod.block_jacobi_inv(blocks, mesh.free_mask)
-            if coarse is not None:
-                tl = coarsemod.two_level_preconditioner(
-                    coarse, mesh.free_mask, bj, mesh.dim)
-
-                def Minv(r):
-                    return tl(r, Ac_inv)
-            else:
-                Minv = bj
-
-            def A_elem(p):
-                if body_kind == "stencil":
-                    return stmod.stencil_matvec(matvec_plan, W, p) * \
-                        mesh.free_mask[:, None]
-                if matvec_plan is None:
-                    return opmod.element_matvec(mesh, p, coeffs)
-                return opmod.banded_matvec(mesh, matvec_plan, p, coeffs)
-
-            def A(p):
-                out = A_elem(p)
-                if any_contact:
-                    y = mc.matvec(mesh, cf, cc, p) if use_contact else 0.0
+                if condensed:
+                    if use_contact:
+                        b = b + mc.rhs(mesh, cf, cc)
+                        blocks = blocks + mc.diag_blocks(mesh, cf, cc)
                     if use_vcollision:
-                        y = y + vcol.matvec(mesh, cf, vcc, p)
+                        b = b - vcol.gradient(mesh, cf, vcc)
+                        blocks = blocks + vcol.diag_blocks(mesh, cf, vcc)
                     if use_friction:
-                        y = y + fric.matvec(mesh, ffr, fcc, p)
-                    out = out + y
-                return out
+                        b = b - fric.gradient(mesh, ffr, fcc)
+                        blocks = blocks + fric.diag_blocks(mesh, ffr, fcc)
 
-            dx0 = meshmod.project_free(mesh, target - x)
-            dx, cg_iters, cg_err = pcgmod.pcg(
-                A, b, dx0, Minv,
-                max_iters=config.max_iterative_solver_iters,
-                tol=config.itr_tol,
-            )
+        def contact_matvec(p, mixed=True):
+            """The contact Hessians' products summed in the JAX step's
+            order: mixed collision (unless `mixed` is false), nodal
+            collision, friction."""
+            y = mc.matvec(mesh, cf, cc, p) if use_contact and mixed else 0.0
+            if use_vcollision:
+                y = y + vcol.matvec(mesh, cf, vcc, p)
+            if use_friction:
+                y = y + fric.matvec(mesh, ffr, fcc, p)
+            return y
+
+        def nodal_matvec(p):
+            return contact_matvec(p, mixed=False)
+
+        if condensed:
+            with record_function("newton.pcg"):
+                dx, cg_iters, cg_err = condensed_solve(
+                    x, b, blocks, coeffs, cc if use_contact else None,
+                    contact_matvec if any_contact else None,
+                    W if body_kind == "stencil" else None)
+            with record_function("newton.line_search"):
+                # --- local recovery of (ds, la) and of the contact (dd, la)
+                ds, la_new = ms.local_solve(mesh, coeffs, s, dx)
+                if use_contact:
+                    cdd, cla = mc.local_solve(mesh, cf, cc, dx)
+        else:
+            with record_function("newton.pcg"):
+                sol, cg_iters, cg_err = full_system_solve(
+                    x, s, la, coeffs, cc if use_contact else None,
+                    nodal_matvec, vcc if use_vcollision else None,
+                    fcc if use_friction else None)
+            with record_function("newton.line_search"):
+                if use_contact:
+                    dx, ds, dl, kkt_dd, kkt_dlc = sol
+                    # the unknowns (dd, dlc) come with the solution
+                    cdd = kkt_dd * cc.active
+                    cla = (cc.la + kkt_dlc) * cc.active
+                else:
+                    dx, ds, dl = sol
+                la_new = la + dl
 
         with record_function("newton.line_search"):
-            # --- local recovery of (ds, la) and of the contact (dd, la)
-            ds, la_new = ms.local_solve(mesh, coeffs, s, dx)
             dec_t = torch.maximum(dx.abs().amax(), ds.abs().amax())
             if use_contact:
-                cdd, cla = mc.local_solve(mesh, cf, cc, dx)
                 cd, cact = cc.d, cc.active
                 dec_t = torch.maximum(dec_t, cdd.abs().amax())
             else:
@@ -468,6 +543,104 @@ def newton_step(
             cd = cd + (accept * alpha) * cdd
         return x, s, la_new, (cd, cla, cact), (E, dec_t, alpha, cg_iters, cg_err)
 
+    def condensed_solve(x, b, blocks, coeffs, cc, contact_matvec, W):
+        """dx of the condensed SPD system (K1 + K2, K1 + K4, or the K5
+        matvec, plus the contact Hessians' products): (dx, iterations,
+        error)."""
+        if solver in ("pcg-laplacian", "pcg-dualascent"):
+            # (M + kL)^{-1} by Chebyshev, k = h^2 * the largest stretch
+            # eigenvalue (coeffs.max_evals carry the h^2)
+            k_lap = torch.max(coeffs.max_evals)
+            ml_inv = lapmod.build_ml_preconditioner(
+                mesh, GwL, k_lap, lap_lmax_m, lap_lmax_l,
+                degree=config.lap_cheby_degree, plan=matvec_plan)
+            if solver == "pcg-dualascent" and use_contact:
+                bj = lapmod.da_apply(ml_inv, mesh, cf, cc,
+                                     iters=config.da_iters)
+            else:
+                # with no frames the dual-ascent solve is the Laplacian's
+                bj = ml_inv
+        elif solver == "pcg-diag":
+            dvec = torch.diagonal(blocks, dim1=-2, dim2=-1)
+            dinv = torch.where(dvec > 0, 1.0 / dvec, 1.0)
+
+            def bj(r):
+                return r * dinv * mesh.free_mask[:, None]
+        else:
+            bj = pcgmod.block_jacobi_inv(blocks, mesh.free_mask)
+        if coarse is not None:
+            tl = coarsemod.two_level_preconditioner(
+                coarse, mesh.free_mask, bj, mesh.dim)
+
+            def Minv(r):
+                return tl(r, Ac_inv)
+        else:
+            Minv = bj
+
+        def A(p):
+            if W is not None:
+                out = stmod.stencil_matvec(matvec_plan, W, p) * \
+                    mesh.free_mask[:, None]
+            elif matvec_plan is None:
+                out = opmod.element_matvec(mesh, p, coeffs)
+            else:
+                out = opmod.banded_matvec(mesh, matvec_plan, p, coeffs)
+            if contact_matvec is not None:
+                out = out + contact_matvec(p)
+            return out
+
+        # warm start: the explicit-Euler prediction
+        dx0 = meshmod.project_free(mesh, target - x)
+        if solver == "gauss-seidel":
+            return gsmod.gs_solve(
+                A, b, dx0, bj, gs_plan,
+                max_iters=config.max_iterative_solver_iters,
+                tol=config.itr_tol)
+        return pcgmod.pcg(A, b, dx0, Minv,
+                          max_iters=config.max_iterative_solver_iters,
+                          tol=config.itr_tol)
+
+    def full_system_solve(x, s, la, coeffs, cc, nodal_matvec, vcc, fcc):
+        """(dx, ds, dl[, dd, dlc]) of the KKT system together: (solution,
+        iterations, error)."""
+        extra_gx = extra_mv = None
+        if vcc is not None or fcc is not None:
+            extra_gx = None
+            if vcc is not None:
+                extra_gx = vcol.gradient(mesh, cf, vcc)
+            if fcc is not None:
+                gf = fric.gradient(mesh, ffr, fcc)
+                extra_gx = gf if extra_gx is None else extra_gx + gf
+            extra_mv = nodal_matvec
+        kkt_cf = cf if cc is not None else None
+        rhs = mrmod.kkt_rhs(mesh, bdf, coeffs, x, s, la,
+                            blend=config.inertia_blend_factor, cf=kkt_cf,
+                            cc=cc, extra_grad_x=extra_gx)
+        if solver in ("minres-kkt", "minres-kkt-admm"):
+            Aop = mrmod.kkt_operator(mesh, coeffs, cf=kkt_cf, cc=cc,
+                                     extra_x_matvec=extra_mv)
+            if solver == "minres-kkt-admm":
+                Mk = admmmod.admm_preconditioner(
+                    mesh, coeffs, rho_scale=config.admm_rho_scale,
+                    sweeps=config.admm_precond_sweeps,
+                    inner_iters=config.admm_inner_iters, cf=kkt_cf, cc=cc)
+            else:
+                Mk = mrmod.kkt_block_diag_preconditioner(mesh, coeffs,
+                                                         cf=kkt_cf, cc=cc)
+            return mrmod.minres(Aop, rhs, tuple(torch.zeros_like(r) for r in rhs),
+                                max_iters=config.max_iterative_solver_iters,
+                                tol=config.itr_tol, Minv=Mk)
+        if solver == "admm":
+            return admmmod.solve_admm(
+                mesh, coeffs, rhs, rho_scale=config.admm_rho_scale,
+                max_iters=config.max_iterative_solver_iters,
+                tol=config.itr_tol, inner_iters=config.admm_inner_iters,
+                cf=kkt_cf, cc=cc)
+        out = dualmod.solve_dual(mesh, coeffs, rhs,
+                                 max_iters=config.max_iterative_solver_iters,
+                                 tol=config.itr_tol, cf=kkt_cf, cc=cc)
+        return out[:-2], out[-2], out[-1]
+
     if body_kind == "grid":
         # per-step hoists of the lattice body
         plan = matvec_plan
@@ -475,7 +648,7 @@ def newton_step(
             plan, mesh.free_mask[:, None].expand(mesh.nv, 3).to(dtype))
         target_l = stmod.to_lat(plan, target)
 
-    def grid_body(x, s, *contact):
+    def grid_body(x, s, la, *contact):
         """The JAX step's lattice (row) body, element-major: lattice CG on
         (3, npad) vectors with the stencil matvec (K5), W assembled by K6,
         block-Jacobi from its o=0 plane, and the alpha-parametrized merit
@@ -549,7 +722,7 @@ def newton_step(
     dec = res = float("inf")
     while it < outer and dec > config.newton_tol and res > 1e-12:
         x, s, la, contact, (E, dec_t, alpha, cg_iters, cg_err) = body(
-            x, s, *contact)
+            x, s, la, *contact)
         res_t = torch.abs((E - E_prev) / (E + 1e-6))
         stats.energy[it] = E
         stats.energy_res[it] = res_t
@@ -589,4 +762,5 @@ def newton_step(
         step_count=state.step_count + 1,
         stats=stats,
         precond=precond_out,
+        power_v0=power_v0,
     )

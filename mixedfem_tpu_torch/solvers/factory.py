@@ -3,19 +3,45 @@ paths (port of mixedfem_tpu/solvers/factory.py).
 
 Scenes name a solver with the "linear_solver" key. Every name the JAX
 package knows resolves to the same internal path name here. This port runs
-two of them, both the condensed matrix-free PCG of optimizer/newton.py:
+the ten on-device paths of optimizer/newton.py:
 
-  pcg                two-level rigid-body coarse preconditioner when the
-                     caller gives a coarse space, else block-Jacobi
-  pcg-block-jacobi   per-vertex (d, d) block-Jacobi only
+  pcg                condensed PCG; two-level rigid-body coarse
+                     preconditioner when the caller gives a coarse space,
+                     else block-Jacobi
+  pcg-block-jacobi   condensed PCG, per-vertex (d, d) block-Jacobi
+  pcg-diag           condensed PCG, scalar diagonal (Jacobi)
+  pcg-laplacian      condensed PCG, Chebyshev (M + kL)^{-1}
+                     (solvers/laplacian.py)
+  pcg-dualascent     the same, wrapped in the dual-ascent contact loop
+  gauss-seidel       multicolor block Gauss-Seidel sweeps as the solver
+                     (solvers/gauss_seidel.py)
+  minres-kkt         MINRES on the full KKT system, block-diagonal
+                     preconditioner (solvers/minres.py)
+  minres-kkt-admm    MINRES with ADMM sweeps as preconditioner
+                     (solvers/admm.py)
+  dual-cg            CG on the Schur complement onto the multipliers
+                     (solvers/dual.py)
+  admm               ADMM on the full KKT system
 
-Every other known name raises NotImplementedError; an unknown name raises
-ValueError, as in the JAX package.
+The host paths ('direct', 'pcg-ic', 'amgcl': scipy and native C++ in the
+JAX package's optimizer/newton_direct.py) raise NotImplementedError; an
+unknown name raises ValueError, as in the JAX package.
 """
 
 from __future__ import annotations
 
-PORTED_SOLVERS = ("pcg", "pcg-block-jacobi")
+PORTED_SOLVERS = (
+    "pcg",
+    "pcg-block-jacobi",
+    "pcg-diag",
+    "pcg-laplacian",
+    "pcg-dualascent",
+    "gauss-seidel",
+    "minres-kkt",
+    "minres-kkt-admm",
+    "dual-cg",
+    "admm",
+)
 
 INTERNAL_SOLVERS = (
     "pcg",
@@ -56,7 +82,7 @@ REFERENCE_SOLVER_MAP = {
 
 
 def resolve_solver(name: str) -> str:
-    """Reference or internal solver name -> 'pcg' or 'pcg-block-jacobi'."""
+    """Reference or internal solver name -> one of PORTED_SOLVERS."""
     if name in INTERNAL_SOLVERS:
         path = name
     elif name in REFERENCE_SOLVER_MAP:
@@ -68,7 +94,8 @@ def resolve_solver(name: str) -> str:
         )
     if path not in PORTED_SOLVERS:
         raise NotImplementedError(
-            f"linear_solver '{name}' (path '{path}'): this port runs "
-            f"{PORTED_SOLVERS}"
+            f"linear_solver '{name}' (path '{path}') is a host solve "
+            f"(the JAX package's optimizer/newton_direct.py), not ported "
+            f"yet; this port runs {PORTED_SOLVERS}"
         )
     return path

@@ -39,11 +39,14 @@ def element_apply_plain(T, Gw, mass, free_mask, p):
     )
 
 
-def element_apply(mesh: meshmod.MeshData, Gw: torch.Tensor, p: torch.Tensor):
-    """Per-corner rows (E, k, d) of the element blocks applied to the
+def element_apply(mesh: meshmod.MeshData, Gw: torch.Tensor, p: torch.Tensor,
+                  mass: torch.Tensor | None = None):
+    """Per-corner rows (E, k, d) of the element blocks (mass (E, k, k),
+    the mesh's consistent mass unless given, and Gw^T Gw) applied to the
     projected p. On a CUDA tensor this launches kernel K1 (its instance for
     tets or triangles); on a CPU tensor it runs element_apply_plain."""
-    args = (mesh.T, Gw, mesh.mass_coeff, mesh.free_mask, p)
+    args = (mesh.T, Gw, mesh.mass_coeff if mass is None else mass,
+            mesh.free_mask, p)
     if p.device.type == "cpu":
         return element_apply_plain(*args)
     return cuda.element_apply(*(a.contiguous() for a in args))
@@ -55,6 +58,17 @@ def element_matvec(
     """(P M P^T + P A_stretch P^T) p, the fused condensed operator."""
     out = assembly.segment_sum(mesh.plan, element_apply(mesh, ms_coeffs.Gw, p))
     return meshmod.project_free(mesh, out)
+
+
+def assemble(mesh: meshmod.MeshData, plan, contrib: torch.Tensor) -> torch.Tensor:
+    """(E, k, ...) corner contributions -> (nv, ...), in a fixed order: over
+    the banded plan (K4 on the card) when `plan` is a BandedPlan, else over
+    the mesh's incidence plan (K2)."""
+    if not isinstance(plan, bs.ScatterPlan):
+        return assembly.segment_sum(mesh.plan, contrib)
+    trail = tuple(contrib.shape[2:])
+    rows = bs.pad_rows(plan, contrib.reshape(mesh.T.numel(), -1))
+    return bs.scatter_add_sorted(plan, rows).reshape((mesh.nv,) + trail)
 
 
 # The banded plan of the element table: the scatter plan of the rows

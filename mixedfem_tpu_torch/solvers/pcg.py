@@ -1,10 +1,14 @@
 """Matrix-free preconditioned conjugate gradient on the condensed SPD
-system (port of mixedfem_tpu/solvers/pcg.py:pcg, _small_inv,
+system (port of mixedfem_tpu/solvers/pcg.py: pcg, pcg_tree, _small_inv,
 block_jacobi_inv).
 
-The JAX package tests convergence inside ``lax.while_loop``; here it is
-tested on the host every iteration, with one ``.item()`` (one device sync
-per iteration), so the iteration counts are the JAX package's.
+The JAX package tests convergence inside ``lax.while_loop``; ``pcg`` and
+``pcg_tree`` test it on the host every iteration, with one ``.item()`` (one
+device sync per iteration), so the iteration counts are the JAX package's.
+``pcg_fixed`` runs a fixed number of iterations with the convergence test
+on the device: an iteration whose residual already meets the tolerance
+leaves x, r, z, p and rz as they are, which is what the JAX loop returns,
+and no value is read back to the host.
 """
 
 from __future__ import annotations
@@ -51,6 +55,83 @@ def pcg(
         rz = rz_new
         it += 1
     rel = torch.sqrt(_dot(r, r) / safe_b)
+    return x, it, rel
+
+
+def pcg_fixed(
+    A: Callable[[torch.Tensor], torch.Tensor],
+    b: torch.Tensor,
+    x0: torch.Tensor,
+    Minv: Callable[[torch.Tensor], torch.Tensor],
+    iters: int,
+    tol: float,
+) -> torch.Tensor:
+    """pcg's x after at most `iters` iterations, with no host read: each of
+    the `iters` iterations runs, and those that start from a residual with
+    ||r||_2 <= tol ||b||_2 change nothing (a converged mask on the
+    device)."""
+    bnorm2 = _dot(b, b)
+    safe_b = torch.where(bnorm2 > 0, bnorm2, torch.ones_like(bnorm2))
+    tol2 = (tol * tol) * safe_b
+
+    x = x0
+    r = b - A(x0)
+    z = Minv(r)
+    p = z
+    rz = _dot(r, z)
+    for _ in range(iters):
+        run = _dot(r, r) > tol2
+        Ap = A(p)
+        denom = _dot(p, Ap)
+        alpha = rz / torch.where(denom != 0, denom, torch.ones_like(denom))
+        x = torch.where(run, x + alpha * p, x)
+        r_new = r - alpha * Ap
+        z_new = Minv(r_new)
+        rz_new = _dot(r_new, z_new)
+        beta = rz_new / torch.where(rz != 0, rz, torch.ones_like(rz))
+        p = torch.where(run, z_new + beta * p, p)
+        r = torch.where(run, r_new, r)
+        rz = torch.where(run, rz_new, rz)
+    return x
+
+
+def tdot(u, v):
+    """The dot product of two tuples of tensors (stacked vectors)."""
+    return sum(torch.sum(a * b) for a, b in zip(u, v))
+
+
+def taxpy(alpha, u, v):
+    """alpha u + v over tuples of tensors."""
+    return tuple(alpha * a + b for a, b in zip(u, v))
+
+
+def pcg_tree(A: Callable, b, x0, Minv: Callable, max_iters: int, tol: float):
+    """pcg on tuples of tensors (the coupled dual Schur system with
+    contact, solvers/dual.py): ||r||_2 <= tol ||b||_2 over the stacked
+    vector. Returns (x, iters, rel_residual)."""
+    bnorm2 = tdot(b, b)
+    safe_b = torch.where(bnorm2 > 0, bnorm2, torch.ones_like(bnorm2))
+    tol2 = (tol * tol) * safe_b
+
+    x = tuple(x0)
+    r = taxpy(-1.0, A(x), b)
+    z = Minv(r)
+    p = z
+    rz = tdot(r, z)
+    it = 0
+    while it < max_iters and bool(tdot(r, r) > tol2):
+        Ap = A(p)
+        denom = tdot(p, Ap)
+        alpha = rz / torch.where(denom != 0, denom, torch.ones_like(denom))
+        x = taxpy(alpha, p, x)
+        r = taxpy(-alpha, Ap, r)
+        z = Minv(r)
+        rz_new = tdot(r, z)
+        beta = rz_new / torch.where(rz != 0, rz, torch.ones_like(rz))
+        p = taxpy(beta, p, z)
+        rz = rz_new
+        it += 1
+    rel = torch.sqrt(tdot(r, r) / safe_b)
     return x, it, rel
 
 

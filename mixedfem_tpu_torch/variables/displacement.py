@@ -1,5 +1,5 @@
-"""Displacement variable: inertia target, energy and per-corner gradient
-contributions (port of mixedfem_tpu/variables/displacement.py).
+"""Displacement variable: inertia target, energy, gradient and its
+per-corner contributions (port of mixedfem_tpu/variables/displacement.py).
 
 The inertia term is 1/2 ||x - x_tilde - h^2 f_ext||^2_M with the full
 consistent mass matrix; the blend factor applies to the gradient only.
@@ -24,6 +24,15 @@ def energy(mesh: meshmod.MeshData, bdf: bdfmod.BDFState, x: torch.Tensor):
     (sum_e diff_e^T Mc_e diff_e), so it needs no scatter."""
     de = (x - target(mesh, bdf, blend=1.0))[mesh.T]
     return 0.5 * torch.sum(torch.einsum("ekd,ekl,eld->e", de, mesh.mass_coeff, de))
+
+
+def gradient(
+    mesh: meshmod.MeshData, bdf: bdfmod.BDFState, x: torch.Tensor, blend: float = 1.0
+):
+    """Masked inertia gradient P M (x - target) (nv, d); the vertex sum
+    runs over the mesh's incidence plan (K2 on the card)."""
+    diff = x - target(mesh, bdf, blend)
+    return meshmod.project_free(mesh, meshmod.mass_matvec(mesh, diff))
 
 
 def gradient_contrib(

@@ -25,7 +25,7 @@ import torch
 
 from mixedfem_tpu_torch.materials import models as mat
 from mixedfem_tpu_torch.mesh import mesh as meshmod
-from mixedfem_tpu_torch.ops import psd, rotation, smallops, sym
+from mixedfem_tpu_torch.ops import assembly, psd, rotation, smallops, sym
 
 
 @dataclasses.dataclass
@@ -103,6 +103,14 @@ def local_solve(
     syminv = sym.syminv_weights(mesh.dim, dtype=s.dtype, device=s.device)
     la = syminv * (torch.einsum("eij,ej->ei", c.H, ds) + c.g)
     return ds, la
+
+
+def gradient_x(mesh: meshmod.MeshData, c: StretchCoeffs, la: torch.Tensor):
+    """x-gradient of the constraint term, vol G^T (Sym la) summed per vertex
+    over the mesh's incidence plan (K2 on the card), masked (nv, d)."""
+    w = sym.sym_weights(mesh.dim, dtype=la.dtype, device=la.device)
+    y = torch.einsum("eikr,ei,e->ekr", c.G, w * la, mesh.vols)
+    return meshmod.project_free(mesh, assembly.segment_sum(mesh.plan, y))
 
 
 def energy(mesh: meshmod.MeshData, s: torch.Tensor):

@@ -332,7 +332,7 @@ def test_initial_state_resume(tmp_path):
 @pytest.mark.parametrize("extra,dim", [
     ({"variables": ["stretch"]}, 2),
     ({"linear_solver": "eigen-llt"}, 3),
-    ({"linear_solver": "subspace-gauss_seidel"}, 3),
+    ({"linear_solver": "eigen-pcg-IC"}, 3),
 ])
 def test_uncovered_scenes_raise(tmp_path, extra, dim):
     path = write_scene(tmp_path, **extra)

@@ -203,3 +203,42 @@ def write_tri_drop_scene(d, dhat=3e-2, newton=3, **extra):
           {"normalize": False, "offset": [0.35, 0.23, 0.0]})],
         enable_ccd=True, dhat=dhat, kappa=1e5, max_newton_iterations=newton,
         iterative_solver_tolerance=1e-8, **extra)
+
+
+class SolveRecorder:
+    """Records every call of one of the port's functions (a module
+    attribute such as solvers/minres.py's `minres`) while active: its
+    arguments and, for a solver, the iteration count it returned (at index
+    `iters_at` of its result; None records none)."""
+
+    def __init__(self, module, name, iters_at=1):
+        self.module, self.name, self.iters_at = module, name, iters_at
+        self.calls = []
+
+    def __enter__(self):
+        fn = self.fn = getattr(self.module, self.name)
+
+        def recorded(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            self.calls.append((args, kwargs, None if self.iters_at is None
+                               else int(out[self.iters_at])))
+            return out
+
+        setattr(self.module, self.name, recorded)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+    def count_with(self, call, patches) -> int:
+        """The count of `call` re-run with module attributes replaced:
+        `patches` is a list of (module, name, replacement)."""
+        args, kwargs, _ = call
+        saved = [(m, n, getattr(m, n)) for m, n, _ in patches]
+        try:
+            for m, n, f in patches:
+                setattr(m, n, f)
+            return int(self.fn(*args, **kwargs)[self.iters_at])
+        finally:
+            for m, n, f in saved:
+                setattr(m, n, f)
