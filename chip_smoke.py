@@ -145,17 +145,49 @@ failure:
    sweeps are equal, and the Krylov counts, which rounding decides on
    these systems (tests/solver_parity.py), agree to 2% on the beam and
    10% with contact.
-19. one JSON line of kernel results (the 2D instances and widths with
-   launches_by_path for tri_step and tri_contact_step, and for each
-   solver of phase 17), then the device line last.
+19. the host solve paths and the vanilla stretch, float32: (a) phase 4's
+   100k-tet beam (its incidence plan, no coarse space) with the vanilla
+   stretch alone and pcg-block-jacobi through newton_step, one warm-up
+   and three timed steps (K2 at m=3 and m=9 must run, K1 and K3 must
+   not); through load_scene and Simulation.step, (b) eigen-pcg-IC on
+   phase 6's 100k-tet scene (5 Newton iterations, one timed step), (c)
+   eigen-llt on phase 6's writer at box_tet_mesh(40, 10, 10) (20,000
+   tets, 3 Newton iterations) with mixed-stretch (one warm-up and one
+   timed step) and with the vanilla stretch alone (one timed step), and
+   (d) subspace-amgcl at box_tet_mesh(20, 5, 5) (2,500 tets, 3 Newton
+   iterations, one timed step). Each prints ms per step and per Newton
+   iteration, host ms per Newton iteration by stage (the device update
+   waited for, assembly, factorization and solve, AMG setup), linear
+   iterations per Newton, nnz of A or S, the IC shift, the AMG levels and
+   the K1-K4 launches, set to 0 just before and read just after (K3 and
+   K2 or K4 on every mixed case, no K3 on the vanilla ones); one JSON
+   line {"host_solvers": ...} of them.
+20. host paths and vanilla stretch, float64, card against CPU, 3 steps:
+   a 1000-tet beam scene with eigen-llt, eigen-pcg-IC and subspace-amgcl,
+   the drop scene with eigen-llt (mixed-collision, and the nodal
+   collision and friction variables in its place), and on a 1000-tet beam
+   through newton_step (newton_step_direct for eigen-llt) the vanilla
+   stretch alone with pcg-block-jacobi and with eigen-llt, beside
+   mixed-stretch with minres-kkt on the beam with Fung's material (10
+   iterations a Newton iteration: the two devices' MINRES iterates part
+   by rounding beyond that, as the packages' do,
+   tests/test_torch_vanilla_steps.py), and the vanilla gradient recorded
+   at the mixed iterates of eigen-llt and of newton_step's
+   pcg-block-jacobi on the Fung beam: positions to 1e-9 of scale, Newton
+   counts and active frames equal, linear counts equal (IC-PCG, AMG-CG,
+   MINRES and the recorded case's CG within 2%), the gradient norms to
+   1e-9 relative.
+21. one JSON line of kernel results (the 2D instances and widths with
+   launches_by_path for tri_step and tri_contact_step, for each solver of
+   phase 17 and each case of phase 19), then the device line last.
 
 --profile DIR additionally traces one more step of each main path with
 torch.profiler, logs the device time of each hand kernel in it, and writes
 the per-kernel tables to DIR/profile_step.txt (phase 4),
 DIR/profile_scene_step.txt (phase 6), DIR/profile_grid_step.txt
 (phase 8), DIR/profile_contact_step.txt (phase 11),
-DIR/profile_tri_step.txt (phase 14) and DIR/profile_tri_contact_step.txt
-(phase 15).
+DIR/profile_tri_step.txt (phase 14), DIR/profile_tri_contact_step.txt
+(phase 15) and DIR/profile_host_<case>.txt (each case of phase 19).
 """
 
 from __future__ import annotations
@@ -1423,6 +1455,271 @@ def solver_contact_trajectories(path):
                                      f"counts differ")
 
 
+# ---------------------------------------------------------------------------
+# phases 19 and 20: the host solve paths and the vanilla stretch variable
+# ---------------------------------------------------------------------------
+
+def host_report(name, states, times, launches, host_ms, newton_its, system):
+    """Log one host-path case: ms per step and per Newton iteration, host
+    ms per Newton iteration by stage, linear iterations per Newton, the
+    system's size, the K1-K4 launches; check finite positions and
+    decreasing energies. `newton_its` counts every step run (warm-up
+    included), as `host_ms` and `launches` do."""
+    timed_its = sum(st.stats.iterations for st in states)
+    lin = sum(sum(st.stats.solver_iters[:st.stats.iterations].tolist())
+              for st in states)
+    for k, (st, ms) in enumerate(zip(states, times)):
+        log(f"  {name} step {k + 1}: {ms:.3f} ms, {describe(st)}")
+        check_energies(st)
+        if not torch.isfinite(st.x).all():
+            raise AssertionError(f"{name}: non-finite positions")
+    out = dict(ms_per_step=sum(times) / len(times),
+               ms_per_newton=sum(times) / timed_its,
+               linear_iters_per_newton=lin / timed_its,
+               host_ms_per_newton={k: v / newton_its
+                                   for k, v in sorted(host_ms.items())},
+               timed_steps=len(times), launches=kernel_counts(launches),
+               **system)
+    log(f"  {name}: ms_per_step {out['ms_per_step']:.3f}, ms per Newton "
+        f"iteration {out['ms_per_newton']:.3f}, linear iterations per Newton "
+        f"{out['linear_iters_per_newton']:.2f}, host ms per Newton "
+        f"{ {k: round(v, 3) for k, v in out['host_ms_per_newton'].items()} }, "
+        f"system {system}, launches {out['launches']}")
+    return out
+
+
+def _timed_steps(step, warm, timed):
+    """Run `warm` untimed and `timed` timed steps (step() returns the
+    state) with the launch counters and the host stage times set to 0
+    just before and read just after: (states, times, launches, host_ms,
+    Newton iterations of every step)."""
+    from mixedfem_tpu_torch import cuda
+    from mixedfem_tpu_torch.optimizer import newton_direct
+
+    cuda.LAUNCHES.clear()
+    newton_direct.HOST_MS.clear()
+    newton_direct.LAST_SYSTEM.clear()
+    torch.cuda.synchronize()
+    its = 0
+    for _ in range(warm):
+        t0 = time.perf_counter()
+        st = step()
+        torch.cuda.synchronize()
+        its += st.stats.iterations
+        log(f"  warm-up step {(time.perf_counter() - t0) * 1e3:.1f} ms: "
+            f"{describe(st)}")
+    states, times = [], []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        st = step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        states.append(st)
+        its += st.stats.iterations
+    return (states, times, dict(cuda.LAUNCHES),
+            dict(newton_direct.HOST_MS), its)
+
+
+def _system():
+    from mixedfem_tpu_torch.optimizer import newton_direct
+
+    return {k: v for k, v in newton_direct.LAST_SYSTEM.items()
+            if v is not None}
+
+
+def _need(name, launches, keys, absent=()):
+    missing = [k for k in keys if launches.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"{name}: kernels not launched: {missing}")
+    ran = [k for k in absent if launches.get(k, 0)]
+    if ran:
+        raise AssertionError(f"{name}: kernels launched that must not: {ran}")
+
+
+def host_solvers(profile_dir=None):
+    """Phase 19: the vanilla stretch alone on the 100k-tet beam through
+    newton_step, eigen-pcg-IC on phase 6's 100k-tet scene, eigen-llt on a
+    20k-tet beam scene (mixed, then the vanilla stretch alone) and
+    subspace-amgcl on a 2.5k-tet beam scene, all float32; returns the
+    {"host_solvers": ...} results. With `profile_dir`, one more step of
+    each case is traced (profile_step)."""
+    import dataclasses
+
+    from mixedfem_tpu_torch.io.scene import load_scene
+    from mixedfem_tpu_torch.optimizer import newton
+
+    results, seconds = {}, {}
+    t_case = time.perf_counter()
+    # (a) the vanilla baseline at full width: K2 at m=3 and m=9, no K3
+    mesh, config, state, _ = beam(40, 25, 20, torch.float32, "cuda")
+    cfg = dataclasses.replace(config, solver="pcg-block-jacobi",
+                              mixed_variables=(), variables=("stretch",))
+    box = [state]
+
+    def vstep():
+        box[0] = newton.newton_step(mesh, cfg, (), box[0])
+        return box[0]
+
+    run = _timed_steps(vstep, 1, 3)
+    name = "vanilla pcg-block-jacobi 100k"
+    _need(name, run[2], ("segment_sum_m3", "segment_sum_m9"),
+          absent=("contract_G_Gw", "element_apply"))
+    results[name] = host_report(name, *run[:4], run[4], {})
+    results[name]["launches_by_kernel"] = run[2]
+    if profile_dir:
+        profile_step(vstep, profile_dir, "host_a_vanilla",
+                     results[name]["ms_per_step"])
+    del mesh, state, box
+    seconds["a"] = time.perf_counter() - t_case
+
+    scenes = (
+        # (case, name, (nx, ny, nz), Newton iterations, overrides,
+        #  warm-up steps, timed steps)
+        ("b", "eigen-pcg-IC 100k", (40, 25, 20), 5,
+         {"linear_solver": "eigen-pcg-IC"}, 0, 1),
+        ("c", "eigen-llt 20k", (40, 10, 10), 3,
+         {"linear_solver": "eigen-llt"}, 1, 1),
+        ("c", "eigen-llt vanilla 20k", (40, 10, 10), 3,
+         {"linear_solver": "eigen-llt", "variables": ["stretch"],
+          "mixed_variables": []}, 0, 1),
+        ("d", "subspace-amgcl 2.5k", (20, 5, 5), 3,
+         {"linear_solver": "subspace-amgcl"}, 0, 1),
+    )
+    for case, name, cells, newton_its, over, warm, timed in scenes:
+        t_case = time.perf_counter()
+        with tempfile.TemporaryDirectory() as d:
+            sim = load_scene(write_scene(d, *cells, newton=newton_its, seed=0),
+                             dim=3, dtype="float32", device="cuda",
+                             overrides=over)
+        log(f"  {name}: E {sim.mesh.nelem} nv {sim.mesh.nv}, banded plan "
+            f"{sim.matvec_plan is not None}, solver {sim.config.solver}, "
+            f"variables {sim.config.mixed_variables + sim.config.variables}, "
+            f"loaded in {time.perf_counter() - t_case:.1f} s")
+        run = _timed_steps(sim.step, warm, timed)
+        vanilla = "stretch" in sim.config.variables
+        sums = ("banded_sum_m3",) if sim.matvec_plan is not None else (
+            "segment_sum_m3",)
+        _need(name, run[2], sums + (() if vanilla else ("contract_G_Gw",)),
+              absent=("contract_G_Gw",) if vanilla else ())
+        results[name] = host_report(name, *run[:4], run[4], _system())
+        results[name]["launches_by_kernel"] = run[2]
+        if profile_dir:
+            slug = re.sub(r"[^a-z0-9]+", "_", name.lower()).strip("_")
+            profile_step(sim.step, profile_dir, f"host_{case}_{slug}",
+                         results[name]["ms_per_step"])
+        del sim
+        seconds[case] = seconds.get(case, 0.0) + time.perf_counter() - t_case
+    log(f"  phase 19 seconds by case: "
+        f"{ {k: round(v, 1) for k, v in seconds.items()} }")
+    return results
+
+
+def _compare(label, g, c, band=0.0, vanilla_grad=False):
+    """Card state g against CPU state c: positions to 1e-9 of scale, equal
+    Newton counts (and active frames), linear counts equal or within
+    `band` (band_ok), the vanilla gradient norms to 1e-9 relative."""
+    scale = c.x.abs().max().item()
+    err = (g.x.cpu() - c.x).abs().max().item()
+    ng, nc = g.stats.solver_iters.tolist(), c.stats.solver_iters.tolist()
+    log(f"  {label}: max |x_card - x_cpu| {err:.3e} (scale {scale:.3f}), "
+        f"Newton {g.stats.iterations}/{c.stats.iterations}, linear "
+        f"iterations card {ng} cpu {nc}")
+    if not err <= 1e-9 * scale:
+        raise AssertionError(f"{label}: the card leaves the CPU")
+    if (g.stats.iterations != c.stats.iterations
+            or g.stats.active_frames.tolist() != c.stats.active_frames.tolist()
+            or not band_ok(ng, nc, band)):
+        raise AssertionError(f"{label}: Newton, linear or active-frame counts "
+                             f"differ")
+    if vanilla_grad:
+        vg, vc = g.stats.vanilla_grad.cpu(), c.stats.vanilla_grad
+        rel = ((vg - vc).abs().max() / vc.abs().max()).item()
+        log(f"  {label}: vanilla gradient norms {vc.tolist()}, rel. err "
+            f"{rel:.3e}")
+        if not (rel <= 1e-9 and (vc[:c.stats.iterations] > 0).all()):
+            raise AssertionError(f"{label}: vanilla gradient norms differ")
+
+
+def host_trajectories():
+    """Phase 20: 3 float64 steps on the card and on the CPU of the host
+    paths (a 1000-tet beam scene with eigen-llt, eigen-pcg-IC and
+    subspace-amgcl; the drop scene with eigen-llt, with mixed-collision
+    and with the nodal collision and friction variables) and of the
+    vanilla stretch on a 1000-tet beam (alone with pcg-block-jacobi and
+    with eigen-llt, beside mixed-stretch with minres-kkt at 10 iterations,
+    and its gradient recorded at eigen-llt's mixed iterates and at
+    newton_step's block-Jacobi PCG iterates on the Fung beam)."""
+    import dataclasses
+
+    from mixedfem_tpu_torch.device import to_device
+    from mixedfem_tpu_torch.io.scene import load_scene
+    from mixedfem_tpu_torch.optimizer import newton, newton_direct
+
+    with tempfile.TemporaryDirectory() as d:
+        beam_scene = write_scene(d, 10, 5, 4, newton=3, seed=1)
+        drop = write_drop_scene(d)
+        cases = [("eigen-llt beam", beam_scene, {"linear_solver": "eigen-llt"}),
+                 ("eigen-pcg-IC beam", beam_scene,
+                  {"linear_solver": "eigen-pcg-IC"}),
+                 ("subspace-amgcl beam", beam_scene,
+                  {"linear_solver": "subspace-amgcl"}),
+                 ("eigen-llt drop", drop, {"linear_solver": "eigen-llt"}),
+                 ("eigen-llt drop collision+friction", drop,
+                  {"linear_solver": "eigen-llt",
+                   "mixed_variables": ["mixed-stretch"],
+                   "variables": ["collision", "friction"]})]
+        for label, path, over in cases:
+            card = load_scene(path, dim=3, dtype="float64", device="cuda",
+                              overrides=over)
+            cpu = to_device(card, "cpu")
+            for k in range(3):
+                g, c = card.step(), cpu.step()
+                _compare(f"{label} step {k}", g, c,
+                         0.0 if over["linear_solver"] == "eigen-llt"
+                         else KRYLOV_BAND)
+    built = {dev: beam(10, 5, 4, torch.float64, dev) for dev in ("cuda", "cpu")}
+    # (label, solver, host path, material, config, count band): MINRES
+    # beside the vanilla stretch runs on the Fung beam, where a 1e-13 change
+    # of the start moves its 3-step trajectory by 1.5e-10 (7e-6 with
+    # Stable-Neo-Hookean, whose vanilla Hessian is indefinite there); the
+    # gradient is recorded on the host path, whose counts no rounding
+    # decides, and on newton_step's generic body with block-Jacobi PCG on
+    # the Fung beam, its CG counts within the Krylov band (on the
+    # Stable-Neo-Hookean beam the card took 80 CG iterations where the CPU
+    # took 81, positions 5e-13 apart); there CG stops at 1e-8, since the
+    # stiff gradient magnifies a position difference about 3e3 times and
+    # at 1e-4 a CG stop that rounding decides left the devices 1.2e-11
+    # apart and the recorded norms 3.3e-8 apart (2.1e-9 of the largest)
+    runs = (("vanilla pcg-block-jacobi", "pcg-block-jacobi", False, None,
+             dict(mixed_variables=(), variables=("stretch",)), 0.0),
+            ("vanilla eigen-llt", "eigen-llt", True, None,
+             dict(mixed_variables=(), variables=("stretch",)), 0.0),
+            ("mixed+vanilla minres-kkt (Fung)", "minres-kkt", False, ("Fung",),
+             dict(variables=("stretch",), max_iterative_solver_iters=10),
+             KRYLOV_BAND),
+            ("record_vanilla_gradient eigen-llt", "eigen-llt", True, None,
+             dict(record_vanilla_gradient=True), 0.0),
+            ("record_vanilla_gradient pcg-block-jacobi (Fung)",
+             "pcg-block-jacobi", False, ("Fung",),
+             dict(record_vanilla_gradient=True, itr_tol=1e-8), KRYLOV_BAND))
+    for label, solver, host, models, cfg, band in runs:
+        out = {}
+        for dev, (mesh, config, state, _) in built.items():
+            if models:
+                mesh = dataclasses.replace(mesh, models=models)
+            c = dataclasses.replace(config, outer_steps=3, solver=solver,
+                                    mixed_variables=("mixed-stretch",))
+            c = dataclasses.replace(c, **cfg)
+            st, out[dev] = state, []
+            for _ in range(3):
+                st = (newton_direct.newton_step_direct(mesh, c, (), st) if host
+                      else newton.newton_step(mesh, c, (), st))
+                out[dev].append(st)
+        for k, (g, c) in enumerate(zip(out["cuda"], out["cpu"])):
+            _compare(f"{label} step {k}", g, c, band,
+                     vanilla_grad="record" in label)
+
+
 def profile_step(step, out_dir, name, untraced_ms):
     """Trace one more step (`step()` runs it) with torch.profiler: device
     busy time against the step's wall time, host and device time per span,
@@ -1742,7 +2039,17 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as d:
         solver_contact_trajectories(write_drop_scene(d))
 
-    log("phase 19: results")
+    log("phase 19: host solve paths and the vanilla stretch, float32")
+    t19 = time.perf_counter()
+    host_results = host_solvers(args.profile)
+    log(f"  phase 19 took {time.perf_counter() - t19:.1f} s")
+
+    log("phase 20: float64 host paths and vanilla stretch, card against CPU")
+    t20 = time.perf_counter()
+    host_trajectories()
+    log(f"  phase 20 took {time.perf_counter() - t20:.1f} s")
+
+    log("phase 21: results")
     replaces = {c["name"]: c["replaces"] for c in cases32 + k4_scene
                 + tri32 + k4_tri}
     replaces.update({t["name"]: "mixedfem_tpu/ops/stencil.py:" + (
@@ -1761,6 +2068,8 @@ def main() -> int:
                    "tri_contact_step": tcontact_launches.get(name, 0)}
         by_path.update({f"solver {n}": r["launches_by_kernel"].get(name, 0)
                         for n, r in solver_results.items()})
+        by_path.update({f"host {n}": r["launches_by_kernel"].get(name, 0)
+                        for n, r in host_results.items()})
         if t["key"] in tri_keys:
             # the 2D path that carries the instance: K4 the contact
             # scene's, K1-K3 the triangle beam's (phase 14)
@@ -1822,6 +2131,9 @@ def main() -> int:
     log(json.dumps({"solvers": {
         n: {k: v for k, v in r.items() if k != "launches_by_kernel"}
         for n, r in solver_results.items()}}))
+    log(json.dumps({"host_solvers": {
+        n: {k: v for k, v in r.items() if k != "launches_by_kernel"}
+        for n, r in host_results.items()}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

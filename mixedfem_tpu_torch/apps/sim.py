@@ -34,7 +34,8 @@ def main(argv=None):
     ap.add_argument("--solver", default=None,
                     help="override the scene's linear_solver: a reference "
                          "factory name or an internal path name of "
-                         "solvers/factory.py (the on-device paths run)")
+                         "solvers/factory.py (the host paths direct, "
+                         "pcg-ic and amgcl among them)")
     args = ap.parse_args(argv)
 
     from mixedfem_tpu_torch.io import mesh_io

@@ -18,10 +18,11 @@ elements in banded order (sorted by min vertex id) and a banded plan for
 scenes of 2000 elements or more, so every assembly and condensed matvec
 goes through kernel K4; a two-level coarse space (target 48) for such
 scenes with the 'pcg' solver only, and the vertex coloring (GSPlan) for
-'gauss-seidel'. On the CPU the scene keeps its natural element order. The
-host solvers ('direct', 'pcg-ic', 'amgcl'; the reference's default
-eigen-llt among their names) raise NotImplementedError while the scene
-loads.
+'gauss-seidel'. On the CPU the scene keeps its natural element order.
+Simulation.step routes the host solvers ('direct', 'pcg-ic', 'amgcl':
+the reference's default eigen-llt, eigen-ldlt, eigen-lu, cholmod,
+eigen-pcg-IC and subspace-amgcl) to optimizer/newton_direct.py, with the
+banded plan for its device sums, and every other name to newton_step.
 
 With contact, Simulation.step runs the host broadphase once per step
 (collision/broadphase.py: candidates_3d over the surface, candidates_2d
@@ -54,8 +55,9 @@ from mixedfem_tpu_torch.io import mesh_io
 from mixedfem_tpu_torch.materials.models import MATERIAL_NAMES, model_index
 from mixedfem_tpu_torch.mesh.mesh import MeshData, build_mesh_data
 from mixedfem_tpu_torch.optimizer.newton import (
-    SimState, check_supported, init_state, newton_step,
+    HOST_SOLVERS, SimState, check_supported, init_state, newton_step,
 )
+from mixedfem_tpu_torch.optimizer.newton_direct import newton_step_direct
 from mixedfem_tpu_torch.solvers import coarse as coarsemod
 from mixedfem_tpu_torch.solvers import gauss_seidel as gsmod
 from mixedfem_tpu_torch.solvers import operator as opmod
@@ -95,6 +97,11 @@ class Simulation:
                 for (Vr, Fr, tid, bary) in self.skinning]
 
     def _one_step(self) -> SimState:
+        if resolve_solver(self.config.solver) in HOST_SOLVERS:
+            return newton_step_direct(
+                self.mesh, self.config, self.bc_specs, self.state,
+                self.press_specs, self.matvec_plan,
+            )
         return newton_step(
             self.mesh, self.config, self.bc_specs, self.state, self.coarse,
             self.press_specs, self.matvec_plan, self.gs_plan,
@@ -204,10 +211,15 @@ def _check_scene(config: SimConfig, dim: int) -> None:
 def _load_object_mesh(path: str, dim: int, normalize: bool):
     """An object's (V, T): a .obj of triangles, its unreferenced vertices
     dropped and z truncated (2D; never normalized), or a .mesh of tets,
-    scaled by its largest coordinate when `normalize` (3D)."""
+    scaled by its largest coordinate when `normalize` (3D; a 3D .obj, a
+    shell, raises NotImplementedError)."""
     if dim == 2:
         V, T = mesh_io.remove_unreferenced(*mesh_io.read_obj(path))
         return V[:, :2].copy(), T
+    if path.lower().endswith(".obj"):
+        raise NotImplementedError(
+            "3D triangle meshes (shells) are not ported: 3D objects are .mesh "
+            "tets")
     V, T, _ = mesh_io.read_mesh(path)
     return (V / V.max() if normalize else V), T
 

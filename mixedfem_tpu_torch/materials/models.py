@@ -1,10 +1,11 @@
-"""S-space material models (port of the S-space part of
-mixedfem_tpu/materials/models.py).
+"""Material models in S-space (the mixed stretch) and F-space (the vanilla
+stretch) (port of mixedfem_tpu/materials/models.py).
 
 Each of the six models is a scalar energy density psi(s, mu, la) of the
-sym-vec stretch s = [S00,S11,S22,S01,S02,S12] (3D) or [S00,S11,S01] (2D);
-gradients and Hessians come from torch.func (grad / hessian under vmap).
-Energy forms, d the dimension:
+sym-vec stretch s = [S00,S11,S22,S01,S02,S12] (3D) or [S00,S11,S01] (2D),
+and psi(F, mu, la) of a (d, d) deformation gradient; gradients and
+Hessians come from torch.func (grad / hessian under vmap). S-space energy
+forms, d the dimension:
   ARAP   : mu/2 |S - I|_F^2
   Corot  : la/2 (trS - d)^2 + mu |S - I|_F^2
   FixedCorot: la/2 (det S - 1)^2 + mu |S - I|_F^2
@@ -22,6 +23,8 @@ from typing import Tuple
 
 import torch
 from torch.func import grad, hessian, vmap
+
+from mixedfem_tpu_torch.ops import rotation
 
 MATERIAL_NAMES: Tuple[str, ...] = (
     "ARAP",
@@ -120,15 +123,16 @@ def psi_s(name: str):
     return _PSI_S[model_index(name)]
 
 
-def _dispatch(transform, models, s, mu, la, model_id):
+def _dispatch(transform, models, s, mu, la, model_id, table=_PSI_S):
     """Per-element evaluation under (possibly) mixed models: one model is a
     straight vmap; with several, each model evaluates the whole batch and
-    the results are selected by mask."""
+    the results are selected by mask. `table` holds the densities in
+    MATERIAL_NAMES order."""
     if len(models) == 1:
-        return transform(psi_s(models[0]))(s, mu, la)
+        return transform(table[model_index(models[0])])(s, mu, la)
     out = None
     for i, name in enumerate(models):
-        val = transform(psi_s(name))(s, mu, la)
+        val = transform(table[model_index(name)])(s, mu, la)
         mask = (model_id == i).to(val.dtype)
         mask = mask.reshape(mask.shape + (1,) * (val.ndim - 1))
         out = val * mask if out is None else out + val * mask
@@ -148,3 +152,104 @@ def grad_s_all(s, mu, la, model_id, models):
 def hess_s_all(s, mu, la, model_id, models):
     """(E, N) -> (E, N, N) Hessians d2psi/ds2."""
     return _dispatch(lambda f: vmap(hessian(f)), models, s, mu, la, model_id)
+
+
+# ---------------------------------------------------------------------------
+# F-space densities psi(F, mu, la) of the vanilla stretch variable, F a
+# (d, d) matrix. ARAP, Corot and FixedCorot differentiate through the
+# branch-free polar decomposition (ops/rotation.py: 8 Jacobi sweeps in 3D,
+# the closed form in 2D). FixedCorot keeps its volume term in the energy;
+# Fung, which has no F-space form in the reference, gets the natural
+# extension of its S-space form.
+# ---------------------------------------------------------------------------
+
+def _rotation_of(F):
+    if F.shape[-1] == 3:
+        R, _ = rotation.polar33(F[None], sweeps=8)
+    else:
+        R, _ = rotation.polar22(F[None])
+    return R[0]
+
+
+def _det(F):
+    if F.shape[-1] == 3:
+        return rotation.det3(F)
+    return F[0, 0] * F[1, 1] - F[0, 1] * F[1, 0]
+
+
+def _psiF_arap(F, mu, la):
+    R = _rotation_of(F)
+    return 0.5 * mu * torch.sum((F - R) ** 2)
+
+
+def _psiF_corot(F, mu, la):
+    R = _rotation_of(F)
+    S = R.T @ F
+    d = F.shape[-1]
+    tr = torch.trace(S)
+    eye = torch.eye(d, dtype=F.dtype, device=F.device)
+    return 0.5 * la * (tr - d) ** 2 + mu * torch.sum((S - eye) ** 2)
+
+
+def _psiF_fcr(F, mu, la):
+    R = _rotation_of(F)
+    J = _det(F)
+    return 0.5 * mu * torch.sum((F - R) ** 2) + 0.5 * la * (J - 1.0) ** 2
+
+
+def _psiF_snh(F, mu, la):
+    d = F.shape[-1]
+    J = _det(F)
+    return (mu * (1.0 - J) + 0.5 * la * (1.0 - J) ** 2
+            + 0.5 * mu * (torch.sum(F ** 2) - d))
+
+
+def _psiF_nh(F, mu, la):
+    d = F.shape[-1]
+    logJ, ok = _safe_log(_det(F))
+    e = -mu * logJ + 0.5 * la * logJ ** 2 + 0.5 * mu * (torch.sum(F ** 2) - d)
+    return torch.where(ok, e, _BIG)
+
+
+def _psiF_fung(F, mu, la):
+    d = F.shape[-1]
+    J = _det(F)
+    n2 = torch.sum(F ** 2)
+    c = _FUNG_C
+    return (
+        0.5 * mu * (torch.exp(0.5 * c * (n2 - d)) - 1.0)
+        + 0.5 * mu * (n2 - d)
+        + 0.5 * la * ((mu + c * mu) / la + 1.0 - J) ** 2
+    )
+
+
+_PSI_F = (_psiF_arap, _psiF_corot, _psiF_fcr, _psiF_fung, _psiF_nh, _psiF_snh)
+
+
+def psi_F(name: str):
+    return _PSI_F[model_index(name)]
+
+
+def psi_F_all(F, mu, la, model_id, models):
+    """(E, d, d) deformation gradients -> (E,) energy densities."""
+    return _dispatch(vmap, models, F, mu, la, model_id, _PSI_F)
+
+
+def grad_F_all(F, mu, la, model_id, models):
+    """(E, d, d) -> (E, d, d) gradients dpsi/dF."""
+    return _dispatch(lambda f: vmap(grad(f)), models, F, mu, la, model_id,
+                     _PSI_F)
+
+
+def hess_F_all(F, mu, la, model_id, models):
+    """(E, d, d) -> (E, d*d, d*d) Hessians in row-major flattened F order."""
+    d = F.shape[-1]
+
+    def flat_hess(psi):
+        def f(Fv, mu, la):
+            return psi(Fv.reshape(d, d), mu, la)
+
+        return vmap(hessian(f))
+
+    return _dispatch(flat_hess, models, F.reshape(F.shape[0], d * d), mu, la,
+                     model_id, _PSI_F)

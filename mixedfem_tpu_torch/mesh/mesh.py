@@ -149,6 +149,17 @@ def def_grad(mesh: MeshData, x: torch.Tensor) -> torch.Tensor:
     return torch.einsum("ekr,ekc->erc", xe, mesh.dphidX)
 
 
+def def_grad_adjoint(mesh: MeshData, Y: torch.Tensor, plan=None) -> torch.Tensor:
+    """Adjoint of def_grad: (E, d, d) co-gradients -> (nv, d), J^T y. The
+    corner rows dphidX Y^T are summed per vertex in a fixed order: over a
+    banded plan (K4 on the card) when `plan` is one, else over the mesh's
+    incidence plan (K2)."""
+    from mixedfem_tpu_torch.solvers import operator as opmod
+
+    return opmod.assemble(mesh, plan,
+                          torch.einsum("ekc,erc->ekr", mesh.dphidX, Y))
+
+
 def mass_matvec(mesh: MeshData, x: torch.Tensor) -> torch.Tensor:
     """Consistent mass product M x, matrix-free (nv, d) -> (nv, d)."""
     ye = torch.einsum("ekl,eld->ekd", mesh.mass_coeff, x[mesh.T])

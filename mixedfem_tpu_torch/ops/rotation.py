@@ -48,7 +48,13 @@ def jacobi_eigh(A: torch.Tensor, sweeps: int = 8):
     pos = _upper_pos(n)
     iu = torch.triu_indices(n, n, device=dev)
     a = Af[:, iu[0], iu[1]].clone()                       # (B, m) upper rows
-    V = torch.eye(n, dtype=dt, device=dev).expand(B, n, n).clone()
+    # the identity, derived from the input so that under torch.func.vmap
+    # (the F-space Hessians of materials/models.py) the in-place column
+    # writes below go into a batched tensor; contiguous whatever Af's
+    # strides (an einsum's output may be a permuted view), as the identity
+    # was before, so the card's products over V keep their bits
+    V = torch.zeros_like(Af, memory_format=torch.contiguous_format) + \
+        torch.eye(n, dtype=dt, device=dev)
 
     f64 = dt == torch.float64
     eps_rel = 1e-14 if f64 else 1e-7

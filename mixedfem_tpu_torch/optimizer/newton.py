@@ -3,9 +3,9 @@ mixedfem_tpu/optimizer/newton.py:newton_step and its on-device solve
 paths).
 
 One call is one implicit BDF step of a 3D tet or 2D triangle solid with
-the mixed-stretch variable and, when the state carries contact frames, IPC
-contact (the mixed-collision variable, the nodal collision barrier, lagged
-friction):
+the mixed-stretch variable, the vanilla (F-space) stretch variable or both
+and, when the state carries contact frames, IPC contact (the
+mixed-collision variable, the nodal collision barrier, lagged friction):
 
   press forces -> Laplacian setup -> lagged friction set -> [ update ->
     assemble -> linear solve -> local (ds, la; dd, contact la) -> ACCD
@@ -55,9 +55,17 @@ fixed lengths and read nothing. Each stage runs under a profiler span
 linear solve, `newton.line_search`, and `newton.contact` around the
 contact work inside them: the frame updates, the contact merit terms and
 ACCD), which costs nothing unless torch.profiler is on. Paths the JAX step
-has and this port does not cover yet (vanilla stretch, f64 islands,
-warm-started rotations, the host solvers 'direct', 'pcg-ic' and 'amgcl')
-raise NotImplementedError.
+has and this port does not cover yet (f64 islands, warm-started rotations)
+raise NotImplementedError. The host solvers 'direct', 'pcg-ic' and 'amgcl'
+are optimizer/newton_direct.py's; this step refuses them with the JAX
+step's ValueError.
+
+With the vanilla stretch variable (variables/stretch.py) the condensed
+paths add its gradient, diagonal blocks and Hessian rows (summed with the
+mass rows and, with the mixed variable, K1's before the one K2/K4 sum), and
+'minres-kkt' adds its product to the x-row; `record_vanilla_gradient`
+records the vanilla gradient norm at every Newton iterate (the
+convergence harness, apps/convergence.py).
 """
 
 from __future__ import annotations
@@ -93,6 +101,7 @@ from mixedfem_tpu_torch.variables import displacement as disp
 from mixedfem_tpu_torch.variables import friction as fric
 from mixedfem_tpu_torch.variables import mixed_collision as mc
 from mixedfem_tpu_torch.variables import mixed_stretch as ms
+from mixedfem_tpu_torch.variables import stretch as vstretch
 from mixedfem_tpu_torch.variables.mixed_collision import ContactFrames
 
 
@@ -106,7 +115,8 @@ class StepStats:
     alpha: torch.Tensor         # (outer,)
     solver_iters: torch.Tensor  # (outer,) int32
     solver_error: torch.Tensor  # (outer,)
-    vanilla_grad: torch.Tensor  # (outer,) zero: not recorded by this port
+    vanilla_grad: torch.Tensor  # (outer,) |vanilla gradient| at each iterate
+    #                             (zero unless config.record_vanilla_gradient)
     iterations: int             # Newton iterations taken
     # mixed contact after each iteration (zero / inf without it): active
     # frames, and the least mixed distance over them
@@ -177,14 +187,18 @@ def init_state(
     )
 
 
-def _total_energy(mesh, bdf, h2, x, s, la, Sv=None):
-    """Line-search merit: inertia + h^2 psi(s) + la . c(x, s). `Sv` skips
-    the polar decomposition when S(x) at this x is already known."""
-    return (
-        disp.energy(mesh, bdf, x)
-        + h2 * ms.energy(mesh, s)
-        + ms.constraint_value(mesh, x, s, la, Sv=Sv)
-    )
+def _total_energy(mesh, bdf, h2, x, s, la, Sv=None, use_mixed=True,
+                  use_vanilla=False):
+    """Line-search merit: inertia + h^2 psi(s) + la . c(x, s) with the
+    mixed variable, + h^2 psi(F(x)) with the vanilla one. `Sv` skips the
+    polar decomposition when S(x) at this x is already known."""
+    E = disp.energy(mesh, bdf, x)
+    if use_mixed:
+        E = E + h2 * ms.energy(mesh, s) + ms.constraint_value(
+            mesh, x, s, la, Sv=Sv)
+    if use_vanilla:
+        E = E + h2 * vstretch.energy(mesh, x)
+    return E
 
 
 def mixed_contact_merit(cf, x_t, cd_t, act_prev_mask, cla, dhat, kappa,
@@ -216,25 +230,32 @@ _NODAL = ("collision", "friction")
 
 # the paths that solve for (dx, ds, dlam[, dd, dlc]) together
 FULL_SYSTEM = ("minres-kkt", "minres-kkt-admm", "dual-cg", "admm")
+# the host paths (optimizer/newton_direct.py)
+HOST_SOLVERS = ("direct", "pcg-ic", "amgcl")
 
 
 def check_supported(config: SimConfig) -> str:
     """The solve path of `config`; raises NotImplementedError for what this
-    port does not cover (the host solvers among them, from
-    factory.resolve_solver)."""
+    port does not cover and for the JAX step's refusals that depend on the
+    configuration alone: a full-system or Laplacian path without the
+    mixed-stretch variable. The host paths keep the JAX host loop's own
+    checks (newton_direct.newton_step_direct)."""
     solver = factory.resolve_solver(config.solver)
-    if "mixed-stretch" not in config.mixed_variables:
-        raise NotImplementedError("this port needs the mixed-stretch variable")
     other = [v for v in config.mixed_variables if v not in _MIXED]
-    other += [v for v in config.variables if v not in _NODAL]
+    other += [v for v in config.variables if v not in _NODAL + ("stretch",)]
     if other:
         raise NotImplementedError(f"variables {other}")
-    if config.rotation_warm_start:
-        raise NotImplementedError("rotation_warm_start")
-    if config.record_vanilla_gradient:
-        raise NotImplementedError("record_vanilla_gradient")
     if config.coarse_inverse_method not in ("newton-schulz", "lu"):
         raise ValueError(config.coarse_inverse_method)
+    if solver in HOST_SOLVERS:
+        # the JAX host loop reads neither option
+        return solver
+    if config.rotation_warm_start:
+        raise NotImplementedError("rotation_warm_start")
+    if "mixed-stretch" not in config.mixed_variables and (
+            solver in FULL_SYSTEM
+            or solver in ("pcg-laplacian", "pcg-dualascent")):
+        raise NotImplementedError(f"{solver} requires mixed-stretch")
     return solver
 
 
@@ -245,7 +266,8 @@ def check_state(solver: str, config: SimConfig, have_frames: bool,
     frames) on the ADMM and dual-Schur paths, and Gauss-Seidel without its
     coloring."""
     nodal = have_frames and any(v in config.variables for v in _NODAL)
-    if solver in ("admm", "minres-kkt-admm") and nodal:
+    vanilla = "stretch" in config.variables
+    if solver in ("admm", "minres-kkt-admm") and (nodal or vanilla):
         # the reference asserts that no nodal variable is present
         raise NotImplementedError(
             "the ADMM iteration handles mixed variables only")
@@ -253,10 +275,11 @@ def check_state(solver: str, config: SimConfig, have_frames: bool,
         raise ValueError(
             "solver 'gauss-seidel' needs a vertex coloring: pass "
             "gs_plan=gauss_seidel.build_gs_plan(T, nv, ...)")
-    if solver == "dual-cg" and nodal:
+    if solver == "dual-cg" and (nodal or vanilla):
         raise NotImplementedError(
             "dual-cg eliminates dx via the lumped mass; nodal-Hessian "
-            "variables (collision/friction) need 'pcg' or 'minres-kkt'")
+            "variables (stretch/collision/friction) need 'pcg' or "
+            "'minres-kkt'")
 
 
 def _select_body(config: SimConfig, solver: str, coarse, matvec_plan,
@@ -264,14 +287,23 @@ def _select_body(config: SimConfig, solver: str, coarse, matvec_plan,
     """'grid', 'stencil' or 'generic', as the JAX step selects its Newton
     body (mixedfem_tpu/optimizer/newton.py:387-405 and :611-633): the
     lattice body for 'pcg' and 'pcg-block-jacobi' only, and never with
-    contact; raises for the stencil branch this port does not cover, and
-    for a stencil plan of a 2D mesh, which the JAX package's
-    build_stencil_plan would not make."""
+    contact, the vanilla variable or a recorded vanilla gradient; raises
+    for the stencil branch this port does not cover, for a stencil plan
+    of a 2D mesh, which the JAX package's build_stencil_plan would not
+    make, and for a stencil plan without the mixed variable or with the
+    vanilla one (the JAX step then hands the plan to its gather matvec,
+    which does not take it)."""
     if not isinstance(matvec_plan, stmod.StencilPlan):
         return "generic"
     if dim != 3:
         raise ValueError("a stencil plan of a 2D mesh: stencil plans are 3D")
+    if ("mixed-stretch" not in config.mixed_variables
+            or "stretch" in config.variables):
+        raise NotImplementedError(
+            "a stencil plan without the mixed-stretch variable or with the "
+            "vanilla stretch variable")
     if (contact or solver not in ("pcg", "pcg-block-jacobi")
+            or config.record_vanilla_gradient
             or (coarse is not None and coarse.grid is None)):
         return "stencil"
     if config.inertia_blend_factor != 1.0:
@@ -317,6 +349,11 @@ def newton_step(
     by 'gauss-seidel'. Contact runs over `state.contact` (Simulation.step
     builds it with the broadphase)."""
     solver = check_supported(config)
+    if solver in HOST_SOLVERS:
+        raise ValueError(
+            f"config.solver='{solver}' is a host path "
+            "(optimizer/newton_direct.py; Simulation.step routes there); "
+            "newton_step runs only the on-device paths")
     cf = state.contact
     have_frames = cf.frames.shape[0] > 0
     check_state(solver, config, have_frames, gs_plan)
@@ -356,6 +393,9 @@ def newton_step(
                 lapmod.ml_operator(mesh, GwL, 1.0, mass_scale=0.0,
                                    plan=matvec_plan), power_v0)
 
+    use_mixed = "mixed-stretch" in config.mixed_variables
+    use_vanilla = "stretch" in config.variables
+    record_vg = config.record_vanilla_gradient
     use_contact = "mixed-collision" in config.mixed_variables and have_frames
     use_vcollision = "collision" in config.variables and have_frames
     use_friction = "friction" in config.variables and have_frames
@@ -395,8 +435,9 @@ def newton_step(
                     frames, cc0.Gx[act], cc0.H[act],
                 )
             Ac = coarsemod.coarse_matrix(
-                mesh, coarse, ms.update(mesh, state.x, state.s, dt), contact0
-            )
+                mesh, coarse,
+                ms.update(mesh, state.x, state.s, dt) if use_mixed else None,
+                contact0)
             if config.coarse_inverse_method == "newton-schulz":
                 return coarsemod.coarse_inverse_ns(
                     Ac, state.precond if cached else None
@@ -431,17 +472,23 @@ def newton_step(
                 e = e + h2 * fric.energy(ffr, x_t, config.contact_mu, epsv_h, dt)
             return e
 
+    def inertia_gradient(x):
+        """The masked inertia gradient, assembled (K2 or K4)."""
+        return meshmod.project_free(mesh, assemble(disp.gradient_contrib(
+            mesh, bdf, x, blend=config.inertia_blend_factor)))
+
     def generic_body(x, s, la, cd, cla, cact):
+        inertia_grad = None
         with record_function("newton.update"):
-            coeffs = ms.update(mesh, x, s, dt)
+            coeffs = ms.update(mesh, x, s, dt) if use_mixed else None
+            vcc = vstretch.update(mesh, x, dt) if use_vanilla else None
             if condensed:
                 # --- assemble: inertia gradient, rhs, block-Jacobi blocks
-                b = -meshmod.project_free(mesh, assemble(disp.gradient_contrib(
-                    mesh, bdf, x, blend=config.inertia_blend_factor
-                )))
-                b = b + meshmod.project_free(
-                    mesh, assemble(ms.rhs_contrib(mesh, coeffs, s))
-                )
+                inertia_grad = inertia_gradient(x)
+                b = -inertia_grad
+                if use_mixed:
+                    b = b + meshmod.project_free(
+                        mesh, assemble(ms.rhs_contrib(mesh, coeffs, s)))
                 if body_kind == "stencil":
                     # the offset-form blocks (K6); their o=0 plane is the
                     # exact block-Jacobi diagonal
@@ -449,15 +496,20 @@ def newton_step(
                                          mesh.mass_coeff)
                     blocks = stmod.diag_blocks(matvec_plan, W)
                 else:
-                    blocks = mesh.mass_diag[:, None, None] * eye + assemble(
-                        ms.diag_blocks_contrib(mesh, coeffs)
-                    )
+                    blocks = mesh.mass_diag[:, None, None] * eye
+                    if use_mixed:
+                        blocks = blocks + assemble(
+                            ms.diag_blocks_contrib(mesh, coeffs))
+                if use_vanilla:
+                    b = b - vstretch.gradient(mesh, vcc, matvec_plan)
+                    blocks = blocks + vstretch.diag_blocks(mesh, vcc,
+                                                           matvec_plan)
             with record_function("newton.contact"):
                 if use_contact:
                     cc = mc.update(mesh, cf, x, cd, cla, cact, dhat, kappa,
                                    ee_mollifier=config.ee_mollifier)
                 if use_vcollision:
-                    vcc = vcol.update(cf, x, dhat, kappa)
+                    vccol = vcol.update(cf, x, dhat, kappa)
                 if use_friction:
                     fcc = fric.update(ffr, x, config.contact_mu, epsv_h)
                 if condensed:
@@ -465,42 +517,49 @@ def newton_step(
                         b = b + mc.rhs(mesh, cf, cc)
                         blocks = blocks + mc.diag_blocks(mesh, cf, cc)
                     if use_vcollision:
-                        b = b - vcol.gradient(mesh, cf, vcc)
-                        blocks = blocks + vcol.diag_blocks(mesh, cf, vcc)
+                        b = b - vcol.gradient(mesh, cf, vccol)
+                        blocks = blocks + vcol.diag_blocks(mesh, cf, vccol)
                     if use_friction:
                         b = b - fric.gradient(mesh, ffr, fcc)
                         blocks = blocks + fric.diag_blocks(mesh, ffr, fcc)
 
-        def contact_matvec(p, mixed=True):
+        def contact_matvec(p, mixed=True, vanilla=False):
             """The contact Hessians' products summed in the JAX step's
-            order: mixed collision (unless `mixed` is false), nodal
-            collision, friction."""
+            order: mixed collision (unless `mixed` is false), the vanilla
+            stretch (when `vanilla`), nodal collision, friction."""
             y = mc.matvec(mesh, cf, cc, p) if use_contact and mixed else 0.0
+            if vanilla:
+                y = y + vstretch.matvec(mesh, vcc, p, matvec_plan)
             if use_vcollision:
-                y = y + vcol.matvec(mesh, cf, vcc, p)
+                y = y + vcol.matvec(mesh, cf, vccol, p)
             if use_friction:
                 y = y + fric.matvec(mesh, ffr, fcc, p)
             return y
 
         def nodal_matvec(p):
-            return contact_matvec(p, mixed=False)
+            """The x-row products of the full-system paths: the vanilla
+            stretch and the nodal contact Hessians."""
+            return contact_matvec(p, mixed=False, vanilla=use_vanilla)
 
         if condensed:
             with record_function("newton.pcg"):
                 dx, cg_iters, cg_err = condensed_solve(
-                    x, b, blocks, coeffs, cc if use_contact else None,
+                    x, b, blocks, coeffs, vcc, cc if use_contact else None,
                     contact_matvec if any_contact else None,
                     W if body_kind == "stencil" else None)
             with record_function("newton.line_search"):
                 # --- local recovery of (ds, la) and of the contact (dd, la)
-                ds, la_new = ms.local_solve(mesh, coeffs, s, dx)
+                if use_mixed:
+                    ds, la_new = ms.local_solve(mesh, coeffs, s, dx)
+                else:
+                    ds, la_new = torch.zeros_like(s), la
                 if use_contact:
                     cdd, cla = mc.local_solve(mesh, cf, cc, dx)
         else:
             with record_function("newton.pcg"):
                 sol, cg_iters, cg_err = full_system_solve(
                     x, s, la, coeffs, cc if use_contact else None,
-                    nodal_matvec, vcc if use_vcollision else None,
+                    nodal_matvec, vcc, vccol if use_vcollision else None,
                     fcc if use_friction else None)
             with record_function("newton.line_search"):
                 if use_contact:
@@ -520,9 +579,19 @@ def newton_step(
             else:
                 cdd = torch.zeros_like(cd)
             # --- merit at the base point (reuses S(x) from the update)
-            E = _total_energy(mesh, bdf, h2, x, s, la_new, Sv=coeffs.Sv)
+            E = _total_energy(mesh, bdf, h2, x, s, la_new,
+                              Sv=coeffs.Sv if use_mixed else None,
+                              use_mixed=use_mixed, use_vanilla=use_vanilla)
             if any_contact:
                 E = E + contact_energy(x, cd, cact, cla)
+            # --- the vanilla gradient norm at the iterate
+            vg = None
+            if record_vg:
+                if inertia_grad is None:
+                    inertia_grad = inertia_gradient(x)
+                vg = torch.linalg.vector_norm(
+                    inertia_grad + vstretch.gradient_at(mesh, x, dt,
+                                                        matvec_plan))
             # --- the CCD step-size clamp
             alpha0 = 1.0
             if (use_contact or use_vcollision) and config.enable_ccd:
@@ -531,7 +600,9 @@ def newton_step(
                         cf.frames, cf.ftype, cf.fmask, x, dx))
 
             def merit(a):
-                e = _total_energy(mesh, bdf, h2, x + a * dx, s + a * ds, la_new)
+                e = _total_energy(mesh, bdf, h2, x + a * dx, s + a * ds,
+                                  la_new, use_mixed=use_mixed,
+                                  use_vanilla=use_vanilla)
                 if any_contact:
                     e = e + contact_energy(x + a * dx, cd + a * cdd, cact, cla)
                 return e
@@ -541,9 +612,10 @@ def newton_step(
             x = x + (accept * alpha) * dx
             s = s + (accept * alpha) * ds
             cd = cd + (accept * alpha) * cdd
-        return x, s, la_new, (cd, cla, cact), (E, dec_t, alpha, cg_iters, cg_err)
+        return (x, s, la_new, (cd, cla, cact),
+                (E, dec_t, alpha, cg_iters, cg_err, vg))
 
-    def condensed_solve(x, b, blocks, coeffs, cc, contact_matvec, W):
+    def condensed_solve(x, b, blocks, coeffs, vcc, cc, contact_matvec, W):
         """dx of the condensed SPD system (K1 + K2, K1 + K4, or the K5
         matvec, plus the contact Hessians' products): (dx, iterations,
         error)."""
@@ -582,9 +654,9 @@ def newton_step(
                 out = stmod.stencil_matvec(matvec_plan, W, p) * \
                     mesh.free_mask[:, None]
             elif matvec_plan is None:
-                out = opmod.element_matvec(mesh, p, coeffs)
+                out = opmod.element_matvec(mesh, p, coeffs, vcc)
             else:
-                out = opmod.banded_matvec(mesh, matvec_plan, p, coeffs)
+                out = opmod.banded_matvec(mesh, matvec_plan, p, coeffs, vcc)
             if contact_matvec is not None:
                 out = out + contact_matvec(p)
             return out
@@ -600,14 +672,18 @@ def newton_step(
                           max_iters=config.max_iterative_solver_iters,
                           tol=config.itr_tol)
 
-    def full_system_solve(x, s, la, coeffs, cc, nodal_matvec, vcc, fcc):
+    def full_system_solve(x, s, la, coeffs, cc, nodal_matvec, vcc, vccol,
+                          fcc):
         """(dx, ds, dl[, dd, dlc]) of the KKT system together: (solution,
         iterations, error)."""
         extra_gx = extra_mv = None
-        if vcc is not None or fcc is not None:
+        if vcc is not None or vccol is not None or fcc is not None:
             extra_gx = None
             if vcc is not None:
-                extra_gx = vcol.gradient(mesh, cf, vcc)
+                extra_gx = vstretch.gradient(mesh, vcc, matvec_plan)
+            if vccol is not None:
+                gc = vcol.gradient(mesh, cf, vccol)
+                extra_gx = gc if extra_gx is None else extra_gx + gc
             if fcc is not None:
                 gf = fric.gradient(mesh, ffr, fcc)
                 extra_gx = gf if extra_gx is None else extra_gx + gf
@@ -709,7 +785,7 @@ def newton_step(
             alpha, accept = _line_search(E, eps_E, config.ls_iters, merit)
             x = x + (accept * alpha) * dx
             s = s + (accept * alpha) * ds
-        return x, s, la_new, contact, (E, dec_t, alpha, cg_iters, cg_err)
+        return x, s, la_new, contact, (E, dec_t, alpha, cg_iters, cg_err, None)
 
     body = grid_body if body_kind == "grid" else generic_body
     stats = empty_stats(outer, dtype, dev)
@@ -721,7 +797,7 @@ def newton_step(
     E_prev = torch.zeros((), dtype=dtype, device=dev)
     dec = res = float("inf")
     while it < outer and dec > config.newton_tol and res > 1e-12:
-        x, s, la, contact, (E, dec_t, alpha, cg_iters, cg_err) = body(
+        x, s, la, contact, (E, dec_t, alpha, cg_iters, cg_err, vg) = body(
             x, s, la, *contact)
         res_t = torch.abs((E - E_prev) / (E + 1e-6))
         stats.energy[it] = E
@@ -730,6 +806,8 @@ def newton_step(
         stats.alpha[it] = alpha
         stats.solver_iters[it] = cg_iters
         stats.solver_error[it] = cg_err
+        if vg is not None:
+            stats.vanilla_grad[it] = vg
         if use_contact:
             cd, cact = contact[0], contact[2]
             stats.active_frames[it] = cact.sum()

@@ -2,8 +2,8 @@
 paths (port of mixedfem_tpu/solvers/factory.py).
 
 Scenes name a solver with the "linear_solver" key. Every name the JAX
-package knows resolves to the same internal path name here. This port runs
-the ten on-device paths of optimizer/newton.py:
+package knows resolves to the same internal path name here, and the port
+runs all thirteen. The ten on-device paths of optimizer/newton.py:
 
   pcg                condensed PCG; two-level rigid-body coarse
                      preconditioner when the caller gives a coarse space,
@@ -23,25 +23,20 @@ the ten on-device paths of optimizer/newton.py:
                      (solvers/dual.py)
   admm               ADMM on the full KKT system
 
-The host paths ('direct', 'pcg-ic', 'amgcl': scipy and native C++ in the
-JAX package's optimizer/newton_direct.py) raise NotImplementedError; an
-unknown name raises ValueError, as in the JAX package.
+and the three host paths of optimizer/newton_direct.py, which
+io/scene.py's Simulation.step routes there (newton_step refuses them with
+ValueError, as in the JAX package):
+
+  direct             exact sparse solve of the assembled condensed system
+                     (scipy; solvers/direct.py)
+  pcg-ic             CG with its incomplete Cholesky factor (native C++)
+  amgcl              CG on the assembled dual system with smoothed-
+                     aggregation AMG (solvers/amg.py)
+
+An unknown name raises ValueError, as in the JAX package.
 """
 
 from __future__ import annotations
-
-PORTED_SOLVERS = (
-    "pcg",
-    "pcg-block-jacobi",
-    "pcg-diag",
-    "pcg-laplacian",
-    "pcg-dualascent",
-    "gauss-seidel",
-    "minres-kkt",
-    "minres-kkt-admm",
-    "dual-cg",
-    "admm",
-)
 
 INTERNAL_SOLVERS = (
     "pcg",
@@ -82,20 +77,12 @@ REFERENCE_SOLVER_MAP = {
 
 
 def resolve_solver(name: str) -> str:
-    """Reference or internal solver name -> one of PORTED_SOLVERS."""
+    """Reference or internal solver name -> one of INTERNAL_SOLVERS."""
     if name in INTERNAL_SOLVERS:
-        path = name
-    elif name in REFERENCE_SOLVER_MAP:
-        path = REFERENCE_SOLVER_MAP[name]
-    else:
-        raise ValueError(
-            f"unknown linear_solver '{name}'; known: "
-            f"{sorted(REFERENCE_SOLVER_MAP) + list(INTERNAL_SOLVERS)}"
-        )
-    if path not in PORTED_SOLVERS:
-        raise NotImplementedError(
-            f"linear_solver '{name}' (path '{path}') is a host solve "
-            f"(the JAX package's optimizer/newton_direct.py), not ported "
-            f"yet; this port runs {PORTED_SOLVERS}"
-        )
-    return path
+        return name
+    if name in REFERENCE_SOLVER_MAP:
+        return REFERENCE_SOLVER_MAP[name]
+    raise ValueError(
+        f"unknown linear_solver '{name}'; known: "
+        f"{sorted(REFERENCE_SOLVER_MAP) + list(INTERNAL_SOLVERS)}"
+    )

@@ -9,7 +9,9 @@ vertex: kernel K2 (ops/assembly.py ``segment_sum``) over the mesh's
 incidence plan in ``element_matvec``, which computes what
 mixedfem_tpu/ops/brick.py:_matvec_kernel computes on the TPU; kernel K4
 (ops/banded_scatter.py ``scatter_add_sorted``) over a banded plan in
-``banded_matvec``, the matvec of every loaded scene on the card.
+``banded_matvec``, the matvec of every loaded scene on the card. With the
+vanilla stretch variable its rows J^T H J p join K1's rows (or, without
+the mixed variable, the mass rows) before the one sum.
 """
 
 from __future__ import annotations
@@ -52,11 +54,45 @@ def element_apply(mesh: meshmod.MeshData, Gw: torch.Tensor, p: torch.Tensor,
     return cuda.element_apply(*(a.contiguous() for a in args))
 
 
+def vanilla_rows(mesh: meshmod.MeshData, H: torch.Tensor, pe: torch.Tensor):
+    """Per-corner rows (E, k, d) of the vanilla stretch's elastic Hessian
+    J^T H J (H (E, d*d, d*d) in row-major F order) applied to the element
+    gathers pe (E, k, d) of a projected vector."""
+    d = mesh.dim
+    dF = torch.einsum("ekr,ekc->erc", pe, mesh.dphidX)
+    y = torch.einsum("eab,eb->ea", H,
+                     dF.reshape(dF.shape[0], d * d)).reshape(dF.shape)
+    return torch.einsum("ekc,erc->ekr", mesh.dphidX, y)
+
+
+def element_rows(mesh: meshmod.MeshData, p: torch.Tensor,
+                 ms_coeffs: StretchCoeffs | None, v_coeffs=None):
+    """Per-corner rows (E, k, d) of the condensed operator's element
+    blocks applied to the projected p: K1's rows (mass and Gw^T Gw) with
+    the mixed variable, the mass rows as torch ops without it, plus the
+    vanilla stretch's rows when `v_coeffs` (variables/stretch.py
+    VanillaCoeffs) is given."""
+    if ms_coeffs is not None:
+        rows = element_apply(mesh, ms_coeffs.Gw, p)
+        if v_coeffs is None:
+            return rows
+        pe = meshmod.project_free(mesh, p)[mesh.T]
+    else:
+        pe = meshmod.project_free(mesh, p)[mesh.T]
+        rows = torch.einsum("ekl,eld->ekd", mesh.mass_coeff, pe)
+    if v_coeffs is not None:
+        rows = rows + vanilla_rows(mesh, v_coeffs.H, pe)
+    return rows
+
+
 def element_matvec(
-    mesh: meshmod.MeshData, p: torch.Tensor, ms_coeffs: StretchCoeffs
+    mesh: meshmod.MeshData, p: torch.Tensor,
+    ms_coeffs: StretchCoeffs | None, v_coeffs=None,
 ) -> torch.Tensor:
-    """(P M P^T + P A_stretch P^T) p, the fused condensed operator."""
-    out = assembly.segment_sum(mesh.plan, element_apply(mesh, ms_coeffs.Gw, p))
+    """(P M P^T + P A_stretch P^T [+ P K_vanilla P^T]) p, the fused
+    condensed operator, summed over the mesh's incidence plan."""
+    out = assembly.segment_sum(
+        mesh.plan, element_rows(mesh, p, ms_coeffs, v_coeffs))
     return meshmod.project_free(mesh, out)
 
 
@@ -86,10 +122,10 @@ def build_banded_plan(mesh: meshmod.MeshData, chunk: int = 2048) -> BandedPlan:
 
 def banded_matvec(
     mesh: meshmod.MeshData, plan: BandedPlan, p: torch.Tensor,
-    ms_coeffs: StretchCoeffs,
+    ms_coeffs: StretchCoeffs | None, v_coeffs=None,
 ) -> torch.Tensor:
-    """element_matvec with the vertex sum over the banded plan: K1's rows in
-    element order, zero-padded to the plan's Rp, summed by K4."""
-    rows = element_apply(mesh, ms_coeffs.Gw, p).reshape(-1, mesh.dim)
+    """element_matvec with the vertex sum over the banded plan: the element
+    rows in element order, zero-padded to the plan's Rp, summed by K4."""
+    rows = element_rows(mesh, p, ms_coeffs, v_coeffs).reshape(-1, mesh.dim)
     out = bs.scatter_add_sorted(plan, bs.pad_rows(plan, rows))
     return meshmod.project_free(mesh, out)

@@ -12,7 +12,9 @@ contact runs repeat bit for bit, and a float64 contact trajectory matches
 the CPU's. The triangle instances of K1 and K3 are held to theirs at the
 100k-triangle shapes and at sizes off K3's tile, a float64 2D step matches
 the CPU's and two float32 runs of the 100k-triangle step repeat bit for
-bit. This file imports neither JAX nor the JAX package, so it also runs
+bit. The host solve paths (direct, IC-PCG, AMG, and the vanilla stretch
+alone with the direct solve) step on the card as on the CPU. This file
+imports neither JAX nor the JAX package, so it also runs
 where only PyTorch is installed:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
@@ -20,6 +22,7 @@ where only PyTorch is installed:
 Every test skips where torch.cuda.is_available() is false."""
 
 import json
+import math
 
 import numpy as np
 import pytest
@@ -778,3 +781,84 @@ def test_float32_tri_step_repeats_on_card(card):
     assert torch.equal(runs[0].x, runs[1].x)
     assert torch.equal(runs[0].stats.energy, runs[1].stats.energy)
     assert runs[0].stats.solver_iters.tolist() == runs[1].stats.solver_iters.tolist()
+
+
+@pytest.mark.parametrize("solver,cfg", [
+    ("direct", {}),
+    ("pcg-ic", {}),
+    ("amgcl", {}),
+    ("direct", dict(mixed_variables=(), variables=("stretch",))),
+], ids=["direct", "pcg-ic", "amgcl", "direct-vanilla-only"])
+def test_host_step_on_card_matches_cpu(card, solver, cfg):
+    """Two float64 steps of the host Newton step (optimizer/newton_direct.py)
+    on the card (K3 and K2 in the coefficient update and the sums; the
+    vanilla stretch's sums through K2 alone) against the CPU (plain
+    versions): positions to 1e-9 of scale, equal Newton and linear counts."""
+    from mixedfem_tpu_torch.optimizer import newton_direct
+
+    V, T, kw, x = beam_arrays(seed=0)
+    if solver == "amgcl":
+        # Stable-Neo-Hookean's clamped stretch Hessians make the dual solve
+        # part at the inputs' rounding (tests/test_torch_host_amg.py)
+        kw = dict(kw, models=("Fung",))
+    step = dict(dict(h=DT, outer_steps=3, newton_tol=0.0, itr_tol=1e-6,
+                     mixed_variables=("mixed-stretch",), solver=solver), **cfg)
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        mesh = tmesh.build_mesh_data(V, T, dtype=torch.float64, device=dev, **kw)
+        x0 = torch.tensor(x, dtype=torch.float64, device=dev)
+        st = newton.init_state(mesh, SimConfig(**step), (), x0,
+                               torch.zeros_like(x0))
+        cuda.LAUNCHES.clear()
+        for _ in range(2):
+            st = newton_direct.newton_step_direct(mesh, SimConfig(**step), (),
+                                                  st)
+        out[dev.type] = (st, dict(cuda.LAUNCHES))
+    (g, launches), (c, none) = out["cuda"], out["cpu"]
+    assert not none
+    need = (("segment_sum_m3",) if cfg else
+            ("contract_G_Gw", "segment_sum_m3"))
+    for k in need:
+        assert launches.get(k, 0) > 0, k
+    assert ("contract_G_Gw" in launches) == (not cfg)
+    np.testing.assert_allclose(g.x.cpu().numpy(), c.x.numpy(), rtol=0,
+                               atol=1e-9 * c.x.abs().max().item())
+    assert g.stats.iterations == c.stats.iterations
+    assert g.stats.solver_iters.tolist() == c.stats.solver_iters.tolist()
+
+
+def test_vanilla_gradient_on_card_matches_cpu(card):
+    """Three float64 steps of newton_step with record_vanilla_gradient (the
+    probe apps/convergence.py reads, on the generic body) on the 1000-tet
+    Fung beam from rest, pcg-block-jacobi, as chip_smoke.py's phase 20
+    runs it, on the card against the CPU: positions to 1e-9 of scale,
+    equal Newton counts, CG counts within 2% (at least 1; rounding decides
+    a stop at the tolerance), the gradient norms to 1e-9 of the largest.
+    CG stops at 1e-8: the stiff gradient magnifies a position difference
+    about 3e3 times, and the two devices' CG iterates part by rounding (on
+    the 360-tet beam from a deformed start, 2.8e-8 at 1e-6 and 8.6e-11 at
+    1e-8 with equal counts)."""
+    V, T, kw, x = beam_arrays(10, 5, 4)
+    step = SimConfig(h=DT, outer_steps=3, newton_tol=0.0, itr_tol=1e-8,
+                     mixed_variables=("mixed-stretch",),
+                     solver="pcg-block-jacobi", record_vanilla_gradient=True)
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        mesh = tmesh.build_mesh_data(V, T, dtype=torch.float64, device=dev,
+                                     **dict(kw, models=("Fung",)))
+        x0 = torch.tensor(x, dtype=torch.float64, device=dev)
+        st = newton.init_state(mesh, step, (), x0, torch.zeros_like(x0))
+        for _ in range(3):
+            st = newton.newton_step(mesh, step, (), st)
+        out[dev.type] = st
+    g, c = out["cuda"], out["cpu"]
+    np.testing.assert_allclose(g.x.cpu().numpy(), c.x.numpy(), rtol=0,
+                               atol=1e-9 * c.x.abs().max().item())
+    assert g.stats.iterations == c.stats.iterations
+    for a, b in zip(g.stats.solver_iters.tolist(), c.stats.solver_iters.tolist()):
+        assert abs(a - b) <= max(1, math.ceil(0.02 * max(a, b))), (a, b)
+    vc = c.stats.vanilla_grad
+    assert (vc[:c.stats.iterations] > 0).all()
+    # relative to the largest norm, as chip_smoke.py's phase 20 holds it
+    np.testing.assert_allclose(g.stats.vanilla_grad.cpu().numpy(), vc.numpy(),
+                               rtol=0, atol=1e-9 * vc.abs().max().item())

@@ -32,7 +32,7 @@ from mixedfem_tpu_torch.mesh import discretization as tdisc
 from mixedfem_tpu_torch.utils import skinning as tskin
 
 from torch_parity import (  # noqa: F401 (one_torch_thread is a fixture)
-    CPU, close, one_torch_thread, t64, to_numpy,
+    CPU, close, one_torch_thread, t64, to_numpy, write_tri_scene,
 )
 
 
@@ -329,15 +329,58 @@ def test_initial_state_resume(tmp_path):
     close(ts.mesh.vols, js.mesh.vols, rtol=1e-14)
 
 
+def _write_2d(d, **extra):
+    """A 2D cantilever scene (grid_tri_mesh(20, 5) over (4, 1), its x=0
+    edge pinned) as beam.obj and scene2d.json in `d`."""
+    from mixedfem_tpu_torch.mesh import generators
+
+    return write_tri_scene(
+        d, [("beam", generators.grid_tri_mesh(20, 5, size=(4.0, 1.0)),
+             {"normalize": False, "boundary_condition":
+              {"type": "hangends", "axis": 0, "ratio": 0.05}})],
+        max_newton_iterations=3, **extra)
+
+
 @pytest.mark.parametrize("extra,dim", [
     ({"variables": ["stretch"]}, 2),
     ({"linear_solver": "eigen-llt"}, 3),
     ({"linear_solver": "eigen-pcg-IC"}, 3),
 ])
 def test_uncovered_scenes_raise(tmp_path, extra, dim):
-    path = write_scene(tmp_path, **extra)
+    """Scenes this test once saw refused now load and step: the vanilla
+    stretch beside the loader's default mixed variables (2D), and the
+    reference's default direct solver and its IC-PCG (Simulation.step
+    routes both to the host step). Both packages load each and take one
+    step; positions agree to 1e-8 and Newton counts are equal."""
+    from host_parity import jitted_jax
+
+    path = (_write_2d(tmp_path, **extra) if dim == 2
+            else write_scene(tmp_path, **extra))
+    js = jload(path, dim=dim, dtype="float64")
+    ts = tload(path, dim=dim, dtype="float64", device="cpu")
+    assert ts.config.variables == js.config.variables
+    assert ts.config.solver == js.config.solver
+    with jitted_jax():
+        js.step()
+        ts.step()
+    close(ts.state.x, js.state.x, rtol=0, atol=1e-8)
+    assert ts.state.stats.iterations == int(js.state.stats.iterations) > 0
+    np.testing.assert_array_equal(ts.state.stats.solver_iters.numpy(),
+                                  np.asarray(js.state.stats.solver_iters))
+
+
+def test_shell_scene_raises(tmp_path):
+    """A 3D scene of triangles (a shell) is still refused."""
+    from mixedfem_tpu_torch.mesh import generators
+
+    V, T = generators.grid_tri_mesh(4, 2, size=(1.0, 0.5))
+    tio.write_obj(str(tmp_path / "sheet.obj"),
+                  np.c_[V, np.zeros(len(V))], T)
+    scene = {"objects": [{"path": "sheet.obj", "normalize": False}]}
+    path = tmp_path / "shell.json"
+    path.write_text(json.dumps(scene))
     with pytest.raises(NotImplementedError):
-        tload(path, dim=dim, device="cpu")
+        tload(str(path), dim=3, device="cpu")
 
 
 def _touching(path, drop=()):

@@ -52,7 +52,7 @@ def grid():
 
 def test_grid_body_only_for_the_block_jacobi_paths(grid):
     tplan = grid[3]
-    for solver in tfactory.PORTED_SOLVERS:
+    for solver in tfactory.INTERNAL_SOLVERS:
         kind = tnewton._select_body(TConfig(solver=solver), solver, None,
                                     tplan, False, 3)
         assert kind == ("grid" if solver in ("pcg", "pcg-block-jacobi")

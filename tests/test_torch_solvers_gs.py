@@ -121,14 +121,10 @@ def test_every_name_resolves_as_in_jax():
     assert sorted(tfactory.REFERENCE_SOLVER_MAP) == sorted(
         jfactory.REFERENCE_SOLVER_MAP)
     for name in names:
-        path = jfactory.resolve_solver(name)
-        if path in ("direct", "pcg-ic", "amgcl"):
-            with pytest.raises(NotImplementedError, match="host solve"):
-                tfactory.resolve_solver(name)
-        else:
-            assert tfactory.resolve_solver(name) == path
-    assert sorted(tfactory.PORTED_SOLVERS) == sorted(
-        set(jfactory.INTERNAL_SOLVERS) - {"direct", "pcg-ic", "amgcl"})
+        assert tfactory.resolve_solver(name) == jfactory.resolve_solver(name)
+    # every path is ported, the host paths (optimizer/newton_direct.py)
+    # included
+    assert sorted(tfactory.INTERNAL_SOLVERS) == sorted(jfactory.INTERNAL_SOLVERS)
     with pytest.raises(ValueError):
         tfactory.resolve_solver("not-a-solver")
 
@@ -136,7 +132,8 @@ def test_every_name_resolves_as_in_jax():
 def test_refusals(beam):
     """gauss-seidel without its coloring, any solver without mixed-stretch
     (the JAX step refuses the Laplacian paths without it), and the host
-    solvers."""
+    solvers, which newton_step refuses with the JAX step's ValueError
+    (Simulation.step routes them to optimizer/newton_direct.py)."""
     tm = beam["tm"]
     x0 = t64(beam["V"])
     base = dict(h=0.02, outer_steps=1, mixed_variables=("mixed-stretch",))
@@ -148,5 +145,5 @@ def test_refusals(beam):
         with pytest.raises(NotImplementedError):
             tnewton.newton_step(tm, cfg, (), st)
     for solver in ("direct", "eigen-pcg-IC", "subspace-amgcl"):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="host path"):
             tnewton.newton_step(tm, TConfig(**base, solver=solver), (), st)

@@ -330,11 +330,25 @@ def test_trajectory_stats(trajectory):
 
 
 def test_step_rejects_uncovered_paths(beam):
+    """newton_step refuses a host solver with the JAX step's ValueError
+    (Simulation.step routes those to newton_direct), and what the port does
+    not cover with NotImplementedError: rotation_warm_start, and the
+    float64 rhs islands of a float32 state."""
     tm = beam["tm"]
     x0 = t64(beam["V"])
     st = tnewton.init_state(tm, TConfig(**STEP), (), x0, torch.zeros_like(x0))
-    for bad in (dict(solver="direct"), dict(variables=("stretch",)),
-                dict(rotation_warm_start=True)):
-        with pytest.raises(NotImplementedError):
-            tnewton.newton_step(tm, TConfig(**STEP, **bad), (), st)
+    with pytest.raises(ValueError):
+        tnewton.newton_step(tm, TConfig(**STEP, solver="direct"), (), st)
+    with pytest.raises(NotImplementedError):
+        tnewton.newton_step(tm, TConfig(**STEP, rotation_warm_start=True),
+                            (), st)
+    tm32 = tmesh.build_mesh_data(beam["V"], beam["T"], dtype=torch.float32,
+                                 device="cpu", **beam["kw"])
+    x32 = x0.float()
+    st32 = tnewton.init_state(tm32, TConfig(**STEP, dtype="float32"), (),
+                              x32, torch.zeros_like(x32))
+    with pytest.raises(NotImplementedError):
+        tnewton.newton_step(
+            tm32, TConfig(**STEP, dtype="float32", rhs_precision="float64"),
+            (), st32)
     assert st.x.device == CPU
