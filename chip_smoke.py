@@ -124,19 +124,23 @@ failure:
 17. the solver family at full width: phase 4's 100k-tet beam (banded
    element order, its incidence plan, so that the condensed matvec is K1 +
    K2; float32, no coarse space, as load_scene gives every solver but
-   pcg) through newton_step with minres-kkt, dual-cg and pcg-laplacian
-   (one warm-up and three timed steps each) and pcg-diag, gauss-seidel,
-   admm and minres-kkt-admm (one timed step each); then phase 11's 92k-tet
+   pcg) through newton_step with minres-kkt, dual-cg, pcg-laplacian,
+   pcg-diag, gauss-seidel, admm and minres-kkt-admm, one timed step
+   each, cut to 2 Newton iterations (admm to 1: about 27 s each at 500
+   sweeps) to keep the script inside its time; then phase 11's 92k-tet
    contact scene through load_scene with eigen-pcg-dualascent and
-   minres-indefinite-block (one warm-up and one timed step each; a kept
+   minres-indefinite-block (one timed step each; a kept
    step's least mixed distance must be > 0; eigen-pcg-dualascent keeps no
    step on this scene, as its dual-ascent loop diverges, PERF.md, and is
    logged so). For each name: ms per step and per Newton
    iteration, solver iterations per Newton, the last decrement, and the
    K1-K4 launch counts, set to 0 just before and read just after (K2 and
    K3 must run for every name, K1 for pcg-laplacian, pcg-diag and
-   gauss-seidel); one JSON line {"solvers": ...} of them.
-18. solver-family trajectories, float64, card against CPU, 3 steps: the
+   gauss-seidel, and K3 inside the Laplacian preconditioner's rows,
+   solvers/laplacian.py:laplacian_rows, for pcg-laplacian and
+   eigen-pcg-dualascent); one JSON line {"solvers": ...} of them.
+18. solver-family trajectories, float64, card against CPU, 2 steps (cut
+   from 3 to keep the script inside its time): the
    eight new names on a 1000-tet beam through newton_step, and the drop
    scene through load_scene with eigen-pcg-dualascent,
    minres-indefinite-block, subspace-CG and admm-solver (ADMM capped at
@@ -177,9 +181,38 @@ failure:
    counts and active frames equal, linear counts equal (IC-PCG, AMG-CG,
    MINRES and the recorded case's CG within 2%), the gradient norms to
    1e-9 relative.
-21. one JSON line of kernel results (the 2D instances and widths with
-   launches_by_path for tri_step and tri_contact_step, for each solver of
-   phase 17 and each case of phase 19), then the device line last.
+21. the lattice-resident CG (the 'lattice_cg' body, where the JAX step
+   refuses its row body): phase 8's 100k-tet grid, f32, (a) with an
+   inertia blend of 0.5 and the grid coarse space, (b) pcg-block-jacobi
+   alone with that blend, one warm-up and three timed steps each (ms per
+   step and per Newton iteration, CG per Newton, the last decrement; K5,
+   K6, K3 and K2 must launch); then 3 float64 steps of phase 9's
+   1500-tet grid in (a), (b) and with the vanilla gradient recorded, card
+   against CPU: positions to 1e-9 of scale, Newton and CG counts equal,
+   the gradient norms to 1e-9 of the largest.
+22. shells: tests/test_shell.py's cloth at 224 x 224 cells (100,352
+   triangles, 50,625 vertices: grid_tri_mesh at z = 0, two corners
+   pinned, gravity along -z, SNH E = 1e5, nu = 0.40, density 100,
+   thickness 1e-3), f32, default pcg without a coarse space, h 0.01, 5
+   Newton iterations, CG to 1e-4. K1's shell instance (element_apply_k3d3)
+   and K7 (contract_Gw_k3d3) are held to their plain versions at its
+   shapes in f32 and f64 and off the tile (E = 1, 31, 33, 103, 100,003,
+   aligned and one element off) and timed (K7 beside one torch.einsum);
+   one warm-up and three timed steps: K1, K7 and K2 must launch, K3 must
+   not.
+23. rods: 1,024 strands of 100 segments along +x (102,400 segments),
+   their roots pinned on a 32 x 32 grid in the y-z plane 0.02 apart,
+   gravity along -y, tests/test_rod.py's material (ARAP, E = 1e7, nu =
+   0.40, density 1000, radius 5e-3), with phase 22's checks and step for
+   K1's rod instance (element_apply_k2d3) and K7 (contract_Gw_k2d3); then
+   3 float64 steps, card against CPU, of the 6 x 6 cloth, the 9-node rod
+   and a 2 x 2 bundle of 8-segment strands (CG to 1e-8): positions to 1e-9
+   of scale, Newton and CG counts equal.
+24. one JSON line of phases 21-23's runs, one of kernel results (the 2D
+   instances and widths with launches_by_path for tri_step and
+   tri_contact_step, the shell and rod instances for shell_step and
+   rod_step, for each solver of phase 17, each case of phase 19 and of
+   phase 21), then the device line last.
 
 --profile DIR additionally traces one more step of each main path with
 torch.profiler, logs the device time of each hand kernel in it, and writes
@@ -212,7 +245,14 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 L2_BYTES = 50 * 2**20
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """Print a line; a phase's first line carries the script's seconds so
+    far."""
+    if msg.startswith("phase "):
+        msg += f" [{time.perf_counter() - _T0:.0f} s]"
     print(msg, flush=True)
 
 
@@ -341,6 +381,7 @@ def step_inputs(mesh, state, dt):
     matvec (rows_p, m = d) and of the diagonal blocks (rows_blk, m = d^2)."""
     from mixedfem_tpu_torch.materials import models as mat
     from mixedfem_tpu_torch.mesh import mesh as meshmod
+    from mixedfem_tpu_torch.mesh import rod as rodmod
     from mixedfem_tpu_torch.ops import psd, rotation, smallops
     from mixedfem_tpu_torch.solvers import operator as opmod
     from mixedfem_tpu_torch.variables import mixed_stretch as ms
@@ -356,23 +397,32 @@ def step_inputs(mesh, state, dt):
     Hs = psd.psd_fix_sqrt(dt * dt * mat.hess_s_all(
         s, mesh.mu, mesh.lam, mesh.model_id, mesh.models), tol=1e-8)[2]
     Hs = Hs.contiguous()
-    Gw = smallops.contract_G_Gw_plain(D, mesh.dphidX, Hs, mesh.vols)[1]
+    G = None
+    if mesh.shell or mesh.rod:
+        # G = D : dF/dx, the Jacobian of the shell's or rod's F
+        JT = (meshmod.shell_def_grad_jacobian(mesh, x) if mesh.shell else
+              rodmod.rod_def_grad_jacobian(x, *meshmod._rod_args(mesh)))
+        G = torch.einsum("eiac,ekrac->eikr", D, JT).contiguous()
+        Gw = smallops.contract_Gw_plain(Hs, G, mesh.vols)
+    else:
+        Gw = smallops.contract_G_Gw_plain(D, mesh.dphidX, Hs, mesh.vols)[1]
     Gw = Gw.contiguous()
     p = torch.randn((mesh.nv, d), generator=g, device=dev, dtype=dtype)
     rows_p = opmod.element_apply_plain(
         mesh.T, Gw, mesh.mass_coeff, mesh.free_mask, p).reshape(-1, d)
     rows_p = rows_p.contiguous()
     rows_blk = torch.einsum("eikr,eiks->ekrs", Gw, Gw).reshape(-1, d * d)
-    return dict(D=D, Hs=Hs, Gw=Gw, p=p, rows_p=rows_p,
+    return dict(D=D, Hs=Hs, G=G, Gw=Gw, p=p, rows_p=rows_p,
                 rows_blk=rows_blk.contiguous(), g=g)
 
 
 def kernel_cases(mesh, cs, state, dt):
-    """K1, K2 and K3 on the inputs the main path gives them: the
-    coefficients at a perturbed state of the 100k-tet beam (or of the 100k
-    triangle cantilever, whose instances and row widths the kernels take
-    by its shape). K2 at m = d and d^2 over the mesh's incidence plan, and
-    at the coarse widths 6 and 36 where a coarse space `cs` is given."""
+    """K1, K2 and K3 (K7 for shells and rods) on the inputs the main path
+    gives them: the coefficients at a perturbed state of the 100k-tet beam
+    (or of the 100k triangle cantilever, the cloth or the hair, whose
+    instances and row widths the kernels take by their shape). K2 at m = d
+    and d^2 over the mesh's incidence plan, and at the coarse widths 6 and
+    36 where a coarse space `cs` is given."""
     from mixedfem_tpu_torch import cuda
     from mixedfem_tpu_torch.ops import assembly, smallops
     from mixedfem_tpu_torch.solvers import operator as opmod
@@ -380,7 +430,8 @@ def kernel_cases(mesh, cs, state, dt):
     dev, dtype = mesh.device, mesh.vols.dtype
     E, k = mesh.T.shape
     d = mesh.dim
-    N, k1_name, k3_name = cuda.SHAPES[(k, d)]
+    shape = cuda.SHAPES[(k, d)]
+    N, k1_name, k3_name = shape.N, shape.k1, shape.k3
     ins = step_inputs(mesh, state, dt)
     D, Hs, Gw, p, g = ins["D"], ins["Hs"], ins["Gw"], ins["p"], ins["g"]
     rows_p, rows_blk = ins["rows_p"], ins["rows_blk"]
@@ -431,6 +482,21 @@ def kernel_cases(mesh, cs, state, dt):
             k2_case("segment_sum_m6", cs.agg_plan, rows6, cs.agg_id),
             k2_case("segment_sum_m36", cs.pair_plan, rows36,
                     cs.pair_id.reshape(-1)),
+        ]
+    if k3_name is None:
+        G = ins["G"]
+        k7_ins = (Hs, G, mesh.vols)
+        return cases + [
+            dict(
+                name=shape.k7, replaces="mixedfem_tpu/ops/smallops.py:22",
+                kernel=cuda.contract_Gw, plain=smallops.contract_Gw_plain,
+                library=lambda Hs_, G_, v: torch.einsum(
+                    "e,eij,ejkr->eikr", sq, Hs_, G_),
+                make=lambda: tuple(t.clone() for t in k7_ins),
+                bytes=nbytes(*k7_ins) + E * nG * G.element_size(),
+                # per element: Hs G (nG x N FMA), scale (nG)
+                flops=E * (2 * nG * N + nG),
+            ),
         ]
     return cases + [
         dict(
@@ -1224,11 +1290,53 @@ def tri_trajectory():
 # phases 17 and 18: the solver family
 # ---------------------------------------------------------------------------
 
-# phase 17's beam solvers and their timed steps (each after one warm-up
-# step where it has three)
-SOLVER_STEPS = {"minres-kkt": 3, "dual-cg": 3, "pcg-laplacian": 3,
-                "pcg-diag": 1, "gauss-seidel": 1, "admm": 1,
-                "minres-kkt-admm": 1}
+# phase 18's float64 steps, card against CPU, of each name (3 until the
+# script neared its time limit; the CPU's steps take most of the phase)
+PHASE18_STEPS = 2
+# phase 17's beam solvers, one timed step each of PHASE17_NEWTON Newton
+# iterations (the beam's 5 cut to keep the script inside its time: every
+# one of these paths is host-bound, most at the 500-iteration cap, so a
+# step's time is its Newton count times a Newton iteration's), ADMM's of
+# ADMM_NEWTON (about 27 s a Newton iteration at 500 sweeps)
+BEAM_SOLVERS = ("minres-kkt", "dual-cg", "pcg-laplacian", "pcg-diag",
+                "gauss-seidel", "admm", "minres-kkt-admm")
+PHASE17_NEWTON = 2
+ADMM_NEWTON = 1
+# the paths whose step builds the Laplacian preconditioner's rows on K3
+LAPLACIAN_SOLVERS = ("pcg-laplacian", "pcg-dualascent",
+                     "eigen-pcg-dualascent")
+
+
+def count_laplacian_k3():
+    """Wrap solvers/laplacian.py:laplacian_rows (the step looks it up at
+    each call) so that K3's launches made inside it are counted: a dict
+    whose "n" the caller sets to 0 and reads, and the function that undoes
+    the wrap."""
+    from mixedfem_tpu_torch import cuda
+    from mixedfem_tpu_torch.solvers import laplacian as lapmod
+
+    orig = lapmod.laplacian_rows
+    counts = {"n": 0}
+
+    def rows(mesh):
+        before = cuda.LAUNCHES["contract_G_Gw"]
+        out = orig(mesh)
+        counts["n"] += cuda.LAUNCHES["contract_G_Gw"] - before
+        return out
+
+    lapmod.laplacian_rows = rows
+    return counts, lambda: setattr(lapmod, "laplacian_rows", orig)
+
+
+def check_laplacian_k3(name, result, counts):
+    """Record the Laplacian rows' K3 launches of one solver's run; a
+    Laplacian path must have launched K3 there."""
+    result["laplacian_rows_k3"] = counts["n"]
+    if name in LAPLACIAN_SOLVERS:
+        log(f"  {name}: K3 launches in the Laplacian rows {counts['n']}")
+        if counts["n"] == 0:
+            raise AssertionError(f"{name}: the Laplacian rows did not run "
+                                 "on K3")
 CONTACT_SOLVERS = ("eigen-pcg-dualascent", "minres-indefinite-block")
 # the kernels that must launch on each beam solver's run, beside K2 and K3
 NEEDS_K1 = ("pcg-laplacian", "pcg-diag", "gauss-seidel")
@@ -1283,9 +1391,9 @@ def solver_report(name, states, times, launches, warm):
 
 
 def solver_family_beam(mesh, config, state):
-    """Phase 17's beam: each solver of SOLVER_STEPS through newton_step
-    with no coarse space, from the same initial state; counters set to 0
-    just before each solver's run and read just after."""
+    """Phase 17's beam: each solver of BEAM_SOLVERS through newton_step
+    with no coarse space, one step from the same initial state; counters
+    set to 0 just before each solver's run and read just after."""
     import dataclasses
 
     from mixedfem_tpu_torch import cuda
@@ -1298,60 +1406,54 @@ def solver_family_beam(mesh, config, state):
     log(f"  vertex coloring: {gs_plan.ncolors} colors in "
         f"{time.perf_counter() - t0:.1f} s (host)")
     results = {}
-    for name, timed in SOLVER_STEPS.items():
-        cfg = dataclasses.replace(config, solver=name)
-        st = state
+    lap_k3, unwrap = count_laplacian_k3()
+    for name in BEAM_SOLVERS:
+        cfg = dataclasses.replace(
+            config, solver=name,
+            outer_steps=ADMM_NEWTON if name == "admm" else PHASE17_NEWTON)
         cuda.LAUNCHES.clear()
+        lap_k3["n"] = 0
         torch.cuda.synchronize()
-        if timed > 1:
-            t0 = time.perf_counter()
-            st = newton.newton_step(mesh, cfg, (), st, gs_plan=gs_plan)
-            torch.cuda.synchronize()
-            log(f"  {name} warm-up step {(time.perf_counter() - t0) * 1e3:.1f}"
-                f" ms: {describe(st)}")
-        states, times = [], []
-        for _ in range(timed):
-            t0 = time.perf_counter()
-            st = newton.newton_step(mesh, cfg, (), st, gs_plan=gs_plan)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-            states.append(st)
+        t0 = time.perf_counter()
+        st = newton.newton_step(mesh, cfg, (), state, gs_plan=gs_plan)
+        torch.cuda.synchronize()
+        times = [(time.perf_counter() - t0) * 1e3]
         launches = dict(cuda.LAUNCHES)
-        results[name] = solver_report(name, states, times, launches,
-                                      timed > 1)
+        results[name] = solver_report(name, [st], times, launches, False)
         results[name]["launches_by_kernel"] = launches
+        check_laplacian_k3(name, results[name], lap_k3)
         c = results[name]["launches"]
         missing = [k for k in ("K2", "K3") + (("K1",) if name in NEEDS_K1
                                               else ()) if c[k] == 0]
         if missing:
             raise AssertionError(f"{name}: kernels not launched: {missing}")
+    unwrap()
     return results
 
 
 def solver_family_contact(path):
     """Phase 17's contact scene with each of CONTACT_SOLVERS through
-    load_scene and Simulation.step: one warm-up and one timed step,
-    counters set to 0 just before and read just after; the least mixed
-    distance must be > 0."""
+    load_scene and Simulation.step: one step, counters set to 0 just
+    before and read just after; the least mixed distance must be > 0."""
     from mixedfem_tpu_torch import cuda
     from mixedfem_tpu_torch.io.scene import load_scene
 
     results = {}
+    lap_k3, unwrap = count_laplacian_k3()
     for name in CONTACT_SOLVERS:
         sim = load_scene(path, dim=3, dtype="float32", device="cuda",
                          overrides={"linear_solver": name})
         states, times = [], []
         cuda.LAUNCHES.clear()
+        lap_k3["n"] = 0
         torch.cuda.synchronize()
-        for _ in range(2):
-            t0 = time.perf_counter()
-            sim.step()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-            states.append(sim.state)
+        t0 = time.perf_counter()
+        sim.step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        states.append(sim.state)
         launches = dict(cuda.LAUNCHES)
-        log(f"  {name} warm-up step {times[0]:.1f} ms: {describe(states[0])}")
-        r = solver_report(name, states[1:], times[1:], launches, True)
+        r = solver_report(name, states, times, launches, False)
         ran = [st for st in states if st.stats.iterations]
         dmin = min((st.stats.min_distance[:st.stats.iterations].min().item()
                     for st in ran), default=math.inf)
@@ -1359,9 +1461,9 @@ def solver_family_contact(path):
                       for st in ran), default=0)
         log(f"  {name}: candidates {sim.state.contact.nreal}, most active "
             f"frames {active}, min mixed distance {dmin:.6e}, retries "
-            f"{sim.retries}, steps kept {len(ran)} of 2")
+            f"{sim.retries}, steps kept {len(ran)} of 1")
         if name == "eigen-pcg-dualascent" and not ran:
-            # every attempt of both steps moved past its candidate margin
+            # every attempt of the step moved past its candidate margin
             # and Simulation.step handed back the pre-step state: the
             # dual-ascent loop, as the JAX package writes it, grows
             # geometrically on this scene (PERF.md, PR 9)
@@ -1376,8 +1478,10 @@ def solver_family_contact(path):
         r.update(launches_by_kernel=launches, retries=sim.retries,
                  steps_kept=len(ran), active_frames=active,
                  min_mixed_distance=dmin if ran else None)
+        check_laplacian_k3(name, r, lap_k3)
         results[name] = r
         del sim
+    unwrap()
     return results
 
 
@@ -1388,8 +1492,9 @@ def band_ok(a, b, frac) -> bool:
 
 
 def solver_trajectories():
-    """Phase 18: every new beam solver on a 1000-tet beam for 3 float64
-    steps of 3 Newton iterations, on the card and on the CPU (the same
+    """Phase 18: every new beam solver on a 1000-tet beam for
+    PHASE18_STEPS float64 steps of 3 Newton iterations, on the card and on
+    the CPU (the same
     start; the Laplacian's power-iteration start drawn on the CPU for
     both)."""
     import dataclasses
@@ -1407,7 +1512,7 @@ def solver_trajectories():
             gs = gsmod.build_gs_plan(mesh.T.cpu().numpy(), mesh.nv,
                                      dtype=torch.float64, device=dev)
             st, out[dev] = state, []
-            for _ in range(3):
+            for _ in range(PHASE18_STEPS):
                 st = newton.newton_step(mesh, cfg, (), st, gs_plan=gs)
                 out[dev].append(st)
         exact = name in ("gauss-seidel", "admm")
@@ -1426,8 +1531,9 @@ def solver_trajectories():
 
 def solver_contact_trajectories(path):
     """Phase 18 with contact: the drop scene with each contact solver
-    (ADMM capped at 40 sweeps a Newton iteration), 3 float64 steps on the
-    card and on the CPU (the same loaded objects moved there)."""
+    (ADMM capped at 40 sweeps a Newton iteration), PHASE18_STEPS float64
+    steps on the card and on the CPU (the same loaded objects moved
+    there)."""
     from mixedfem_tpu_torch.device import to_device
     from mixedfem_tpu_torch.io.scene import load_scene
 
@@ -1437,7 +1543,7 @@ def solver_contact_trajectories(path):
         card = load_scene(path, dim=3, dtype="float64", device="cuda",
                           overrides=dict(over, linear_solver=name))
         cpu = to_device(card, "cpu")
-        for k in range(3):
+        for k in range(PHASE18_STEPS):
             g, c = card.step(), cpu.step()
             scale = c.x.abs().max().item()
             err = (g.x.cpu() - c.x).abs().max().item()
@@ -1718,6 +1824,295 @@ def host_trajectories():
         for k, (g, c) in enumerate(zip(out["cuda"], out["cpu"])):
             _compare(f"{label} step {k}", g, c, band,
                      vanilla_grad="record" in label)
+
+
+# ---------------------------------------------------------------------------
+# phase 21: the lattice-resident CG; phases 22 and 23: shells and rods
+# ---------------------------------------------------------------------------
+
+# phase 21's cases on the grid: where the JAX step refuses its row body
+# and solves with CG on the lattice (the port's 'lattice_cg' body)
+LATTICE_CG_CASES = {
+    "lattice_cg_blend_grid_coarse": dict(inertia_blend_factor=0.5),
+    "lattice_cg_block_jacobi": dict(solver="pcg-block-jacobi",
+                                    inertia_blend_factor=0.5),
+}
+
+
+def _stepper(mesh, cfg, state, coarse=None, plan=None):
+    """A step() for _timed_steps: newton_step from `state` onwards."""
+    from mixedfem_tpu_torch.optimizer import newton
+
+    held = {"st": state}
+
+    def step():
+        held["st"] = newton.newton_step(mesh, cfg, (), held["st"], coarse, (),
+                                        plan)
+        return held["st"]
+
+    return step
+
+
+def lattice_cg_main_path():
+    """Phase 21: phase 8's 100k-tet grid through the lattice-CG body, f32,
+    (a) with an inertia blend of 0.5 and the grid coarse space, (b)
+    pcg-block-jacobi alone with the same blend: one warm-up and three
+    timed steps each, counters set to 0 just before and read just after;
+    K5, K6, K3 and K2 must launch."""
+    import dataclasses
+
+    from mixedfem_tpu_torch.optimizer import newton
+
+    mesh, config, state, cs, plan = grid_beam(40, 25, 20, torch.float32,
+                                              "cuda")
+    results = {}
+    for name, over in LATTICE_CG_CASES.items():
+        cfg = dataclasses.replace(config, **over)
+        coarse = cs if cfg.solver == "pcg" else None
+        body = newton._select_body(cfg, cfg.solver, coarse, plan, False, 3)
+        if body != "lattice_cg":
+            raise AssertionError(f"{name}: body {body}, not lattice_cg")
+        states, times, launches, _, _ = _timed_steps(
+            _stepper(mesh, cfg, state, coarse, plan), 1, 3)
+        r = solver_report(name, states, times, launches, True)
+        _need(name, launches, ("stencil_apply", "stencil_assemble",
+                               "contract_G_Gw", "segment_sum_m3"))
+        r.update(body=body, launches_by_kernel=launches)
+        results[name] = r
+    return results
+
+
+def lattice_cg_trajectories():
+    """Phase 21, float64: 3 steps of phase 9's 1500-tet grid (3 Newton
+    iterations, coarse refresh every 2nd step) through the lattice-CG body
+    on the card and on the CPU, in (a), (b) and with the vanilla gradient
+    recorded (pcg, grid coarse space): positions to 1e-9 of scale, Newton
+    and CG counts equal, the gradient norms to 1e-9 of the largest."""
+    import dataclasses
+
+    cases = dict(LATTICE_CG_CASES,
+                 lattice_cg_recorded_gradient=dict(record_vanilla_gradient=True))
+    for name, over in cases.items():
+        out = {}
+        for dev in ("cuda", "cpu"):
+            mesh, config, state, cs, plan = grid_beam(10, 6, 5, torch.float64,
+                                                      dev)
+            cfg = dataclasses.replace(config, outer_steps=3,
+                                      coarse_refresh_every=2, **over)
+            out[dev] = run_steps(mesh, cfg, state,
+                                 cs if cfg.solver == "pcg" else None, 3, plan)
+        for k, (g, c) in enumerate(zip(out["cuda"], out["cpu"])):
+            _compare(f"{name} step {k}", g, c,
+                     vanilla_grad="recorded" in name)
+
+
+def _membrane_config(dtype, **over):
+    """The cloth's and the hair's step: BDF1, h = 0.01 (tests/test_shell.py
+    and tests/test_rod.py), default pcg with no coarse space; in f32 5
+    Newton iterations to CG 1e-4."""
+    from mixedfem_tpu_torch.config import SimConfig
+
+    kw = dict(h=0.01, outer_steps=5, newton_tol=0.0, itr_tol=1e-4,
+              max_iterative_solver_iters=500,
+              mixed_variables=("mixed-stretch",),
+              dtype="float64" if dtype == torch.float64 else "float32")
+    kw.update(over)
+    return SimConfig(**kw)
+
+
+def cloth(nx, ny, dtype, device, **over):
+    """tests/test_shell.py:cloth at nx x ny cells: grid_tri_mesh over the
+    unit square at z = 0 (2 nx ny triangles), two corners pinned, gravity
+    along -z, Stable-Neo-Hookean (E = 1e5, nu = 0.40), density 100,
+    thickness 1e-3: mesh, config, state at rest."""
+    from mixedfem_tpu_torch.config import enu_to_lame
+    from mixedfem_tpu_torch.mesh import generators
+    from mixedfem_tpu_torch.mesh import mesh as meshmod
+    from mixedfem_tpu_torch.optimizer import newton
+
+    V2, T = generators.grid_tri_mesh(nx, ny, size=(1.0, 1.0))
+    V = np.concatenate([V2, np.zeros((len(V2), 1))], axis=1)
+    la, mu = enu_to_lame(1e5, 0.40)
+    fixed = np.zeros(len(V), bool)
+    fixed[np.argmin(V[:, 0] + V[:, 1])] = True
+    fixed[np.argmin(-V[:, 0] + V[:, 1])] = True
+    ext = np.zeros_like(V)
+    ext[:, 2] = -9.8
+    mesh = meshmod.build_mesh_data(
+        V, T, density=np.full(len(T), 100.0), mu=np.full(len(T), mu),
+        lam=np.full(len(T), la), model_id=np.zeros(len(T), int),
+        models=("Stable-Neohookean",), is_fixed=fixed, ext_force=ext,
+        dtype=dtype, device=device, shell=True, thickness=1e-3)
+    config = _membrane_config(dtype, **over)
+    x0 = mesh.V0.clone()
+    return mesh, config, newton.init_state(mesh, config, (), x0,
+                                           torch.zeros_like(x0))
+
+
+def hair(side, segments, dtype, device, length=1.0, spacing=0.02, **over):
+    """side x side strands of `segments` segments along +x, `length` long,
+    their roots pinned on a grid in the y-z plane `spacing` apart, gravity
+    along -y; tests/test_rod.py:chain_rod's material (ARAP, E = 1e7, nu =
+    0.40, density 1000, radius 5e-3): mesh, config, state at rest."""
+    from mixedfem_tpu_torch.config import enu_to_lame
+    from mixedfem_tpu_torch.mesh import mesh as meshmod
+    from mixedfem_tpu_torch.optimizer import newton
+
+    n = segments + 1
+    s = np.arange(side * side)
+    V = np.zeros((side * side, n, 3))
+    V[:, :, 0] = np.linspace(0.0, length, n)
+    V[:, :, 1] = (spacing * (s // side))[:, None]
+    V[:, :, 2] = (spacing * (s % side))[:, None]
+    V = V.reshape(-1, 3)
+    E = (np.stack([np.arange(n - 1), np.arange(1, n)], axis=1)[None]
+         + n * s[:, None, None]).reshape(-1, 2)
+    fixed = np.zeros(len(V), bool)
+    fixed[n * s] = True
+    la, mu = enu_to_lame(1e7, 0.40)
+    mesh = meshmod.build_rod_mesh_data(
+        V, E, density=np.full(len(E), 1000.0), mu=np.full(len(E), mu),
+        lam=np.full(len(E), la), model_id=np.zeros(len(E), int),
+        models=("ARAP",), is_fixed=fixed,
+        ext_force=np.tile(np.array([0.0, -9.8, 0.0]), (len(V), 1)),
+        radius=5e-3, dtype=dtype, device=device)
+    config = _membrane_config(dtype, **over)
+    x0 = mesh.V0.clone()
+    return mesh, config, newton.init_state(mesh, config, (), x0,
+                                           torch.zeros_like(x0))
+
+
+def off_tile_checks(k, d):
+    """K1 and K7 at (k, d) against their plain versions at E = 1, 31, 33,
+    103 and 100,003 (K7 tiles of 32: one element, a tile one short, a tile
+    and one, partial last tiles), in f32 (1e-5 of scale) and f64 (1e-12),
+    from aligned buffers and from buffers one element off 16 bytes."""
+    from mixedfem_tpu_torch import cuda
+    from mixedfem_tpu_torch.ops import smallops
+    from mixedfem_tpu_torch.solvers import operator as opmod
+
+    sh = cuda.SHAPES[(k, d)]
+    N = sh.N
+    dev = torch.device("cuda")
+    worst = {}
+    for dt, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        for off in (0, 1):
+            for E in (1, 31, 33, 103, 100003):
+                g = torch.Generator(device=dev).manual_seed(E + off)
+
+                def rnd(*shape):
+                    n = int(np.prod(shape))
+                    buf = torch.randn(n + off, generator=g, device=dev,
+                                      dtype=dt)
+                    return buf[off:].view(shape)
+
+                Hs, G, vols = rnd(E, N, N), rnd(E, N, k, d), rnd(E).abs() + 0.1
+                nv = E + 2
+                T = torch.randint(0, nv, (E, k), generator=g, device=dev,
+                                  dtype=torch.int32)
+                Gw, mass, p = rnd(E, N, k, d), rnd(E, k, k), rnd(nv, d)
+                fm = (torch.rand(nv, generator=g, device=dev) > 0.2).to(dt)
+                for name, got, ref in (
+                        (sh.k7, cuda.contract_Gw(Hs, G, vols),
+                         smallops.contract_Gw_plain(Hs, G, vols)),
+                        (sh.k1, cuda.element_apply(T, Gw, mass, fm, p),
+                         opmod.element_apply_plain(T, Gw, mass, fm, p))):
+                    err, scale = max_err(got, ref)
+                    if not err <= tol * scale:
+                        raise AssertionError(
+                            f"{name} {dt} E {E} offset {off}: {err:.3e} of "
+                            f"{scale:.3e}")
+                    key = (name, str(dt))
+                    worst[key] = max(worst.get(key, 0.0),
+                                     err / max(scale, 1e-300))
+    for (name, dt), e in worst.items():
+        log(f"  {name} {dt} off the tile (E 1, 31, 33, 103, 100003, aligned "
+            f"and offset): worst error {e:.3e} of scale")
+
+
+def membrane_kernels(build, label):
+    """K1 and K7 at the shape of the mesh `build(dtype)` makes (the cloth's
+    or the hair's), with K2 at m = 3 and 9 over its incidence plan, held to
+    their plain versions in f32 and f64 at the main path's shapes and off
+    the tile; K1 and K7 timed in both types. (K1's and K7's errors, f32
+    timings, f64 timings by name.)"""
+    dt = 0.01
+    mesh, _, state = build(torch.float32)
+    log(f"  {label}: E {mesh.nelem} nv {mesh.nv}; " +
+        plan_line("vertex plan", mesh.plan))
+    c32 = kernel_cases(mesh, None, state, dt)
+    errs = check_kernels(c32, torch.float32, 1e-5)
+    mesh64, _, state64 = build(torch.float64)
+    c64 = kernel_cases(mesh64, None, state64, dt)
+    check_kernels(c64, torch.float64, 1e-12)
+    mine = [c for c in c64 if not c["name"].startswith("segment")]
+    t64 = {t["name"]: t for t in time_kernels(mine, torch.float64)}
+    del mesh64, state64, c64, mine
+    k, d = mesh.T.shape[1], mesh.dim
+    off_tile_checks(k, d)
+    mine = [c for c in c32 if not c["name"].startswith("segment")]
+    t32 = time_kernels(mine, torch.float32)
+    return {c["name"]: errs[c["name"]] for c in mine}, t32, t64
+
+
+def membrane_main_path(name, mesh, config, state):
+    """One warm-up and three timed f32 steps through newton_step, counters
+    set to 0 just before and read just after: K1 and K7 at the mesh's
+    shape and K2 must launch, K3 must not."""
+    from mixedfem_tpu_torch import cuda
+
+    sh = cuda.SHAPES[(mesh.T.shape[1], mesh.dim)]
+    states, times, launches, _, _ = _timed_steps(
+        _stepper(mesh, config, state), 1, 3)
+    r = solver_report(name, states, times, launches, True)
+    _need(name, launches, (sh.k1, sh.k7, "segment_sum_m3", "segment_sum_m9"),
+          absent=("contract_G_Gw", "contract_G_Gw_n3"))
+    final = states[-1]
+    if not torch.isfinite(final.x).all():
+        raise AssertionError(f"{name}: non-finite positions")
+    fixed = mesh.free_mask == 0
+    if not (final.x[fixed] - mesh.V0[fixed]).abs().max().item() <= 1e-6:
+        raise AssertionError(f"{name}: a pinned vertex moved")
+    r["launches_by_kernel"] = launches
+    return r
+
+
+def membrane_trajectories():
+    """Phases 22 and 23, float64: 3 steps on the card and on the CPU of the
+    6 x 6 cloth (tests/test_shell.py's drape, CG to 1e-8), the 9-node rod
+    (tests/test_rod.py's hanging chain_rod) and a bundle of 2 x 2 strands
+    of 8 segments (CG to 1e-8): positions to 1e-9 of scale, Newton counts
+    equal, CG counts within KRYLOV_BAND. The flat cloth's out-of-plane
+    stiffness is its mass alone, and its CG iterates part by rounding:
+    the card's and the CPU's positions lay 4.4e-11 apart after the first
+    step with equal counts, and a stop at the tolerance then moved by one
+    (52 against 53 in the second step's last solve; PERF.md)."""
+    from mixedfem_tpu_torch import cuda
+
+    runs = (
+        ("cloth 6x6", lambda dev: cloth(6, 6, torch.float64, dev,
+                                        outer_steps=3, itr_tol=1e-8)),
+        ("chain_rod(9)", lambda dev: hair(1, 8, torch.float64, dev,
+                                          outer_steps=3, itr_tol=1e-8,
+                                          max_iterative_solver_iters=2000)),
+        ("bundle 2x2", lambda dev: hair(2, 8, torch.float64, dev,
+                                        spacing=0.1, outer_steps=3,
+                                        itr_tol=1e-8,
+                                        max_iterative_solver_iters=2000)),
+    )
+    for label, build in runs:
+        out = {}
+        for dev in ("cuda", "cpu"):
+            mesh, config, state = build(dev)
+            cuda.LAUNCHES.clear()
+            out[dev] = run_steps(mesh, config, state, None, 3)
+            launches = dict(cuda.LAUNCHES)
+            if dev == "cuda":
+                sh = cuda.SHAPES[(mesh.T.shape[1], 3)]
+                _need(label, launches, (sh.k1, sh.k7),
+                      absent=("contract_G_Gw",))
+        for k, (g, c) in enumerate(zip(out["cuda"], out["cpu"])):
+            _compare(f"{label} step {k}", g, c, KRYLOV_BAND)
 
 
 def profile_step(step, out_dir, name, untraced_ms):
@@ -2049,28 +2444,72 @@ def main() -> int:
     host_trajectories()
     log(f"  phase 20 took {time.perf_counter() - t20:.1f} s")
 
-    log("phase 21: results")
+    log("phase 21: the lattice-resident CG on the 100k-tet grid, float32, "
+        "and float64 card against CPU")
+    t21 = time.perf_counter()
+    lattice_results = lattice_cg_main_path()
+    lattice_cg_trajectories()
+    log(f"  phase 21 took {time.perf_counter() - t21:.1f} s")
+
+    log("phase 22: shells, the 100,352-triangle cloth, float32")
+    t22 = time.perf_counter()
+    shell_errs, shell_t, shell64_t = membrane_kernels(
+        lambda dtype: cloth(224, 224, dtype, "cuda"), "cloth")
+    errs.update(shell_errs)
+    mesh, config, state = cloth(224, 224, torch.float32, "cuda")
+    shell_result = membrane_main_path("shell_step", mesh, config, state)
+    del mesh, state
+    log(f"  phase 22 took {time.perf_counter() - t22:.1f} s")
+
+    log("phase 23: rods, the 102,400-segment hair, float32")
+    t23 = time.perf_counter()
+    rod_errs, rod_t, rod64_t = membrane_kernels(
+        lambda dtype: hair(32, 100, dtype, "cuda"), "hair")
+    errs.update(rod_errs)
+    mesh, config, state = hair(32, 100, torch.float32, "cuda")
+    rod_result = membrane_main_path("rod_step", mesh, config, state)
+    del mesh, state
+    log("  phases 22 and 23, float64 card against CPU")
+    membrane_trajectories()
+    log(f"  phase 23 took {time.perf_counter() - t23:.1f} s")
+
+    log("phase 24: results")
     replaces = {c["name"]: c["replaces"] for c in cases32 + k4_scene
                 + tri32 + k4_tri}
+    replaces.update({t["name"]: ("mixedfem_tpu/ops/brick.py:176"
+                                 if t["name"].startswith("element_apply")
+                                 else "mixedfem_tpu/ops/smallops.py:22")
+                     for t in shell_t + rod_t})
+    membrane_paths = {t["name"]: "shell_step" for t in shell_t}
+    membrane_paths.update({t["name"]: "rod_step" for t in rod_t})
+    membrane64 = dict(shell64_t, **rod64_t)
     replaces.update({t["name"]: "mixedfem_tpu/ops/stencil.py:" + (
         "378" if t["name"] == "stencil_apply" else "187") for t in st32_t})
     k4_other = {t["name"]: t for t in k4_beam_t}
     contact_keys = {t["key"] for t in k2c_t}
     kernels = []
     tri_keys = {t["key"] for t in tri32_t + k4_tri_t}
-    for t in timings + k4_scene_t + st32_t + k2c_t + tri32_t + k4_tri_t:
+    for t in (timings + k4_scene_t + st32_t + k2c_t + tri32_t + k4_tri_t
+              + shell_t + rod_t):
         name = t["name"]
         by_path = {"beam_step": launches.get(name, 0),
                    "scene_step": scene_launches.get(name, 0),
                    "grid_step": grid_launches.get(name, 0),
                    "contact_step": contact_launches.get(name, 0),
                    "tri_step": tri_launches.get(name, 0),
-                   "tri_contact_step": tcontact_launches.get(name, 0)}
+                   "tri_contact_step": tcontact_launches.get(name, 0),
+                   "shell_step": shell_result["launches_by_kernel"].get(name, 0),
+                   "rod_step": rod_result["launches_by_kernel"].get(name, 0)}
+        by_path.update({n: r["launches_by_kernel"].get(name, 0)
+                        for n, r in lattice_results.items()})
         by_path.update({f"solver {n}": r["launches_by_kernel"].get(name, 0)
                         for n, r in solver_results.items()})
         by_path.update({f"host {n}": r["launches_by_kernel"].get(name, 0)
                         for n, r in host_results.items()})
-        if t["key"] in tri_keys:
+        if name in membrane_paths:
+            # K1's and K7's shell and rod instances: phases 22 and 23
+            path = membrane_paths[name]
+        elif t["key"] in tri_keys:
             # the 2D path that carries the instance: K4 the contact
             # scene's, K1-K3 the triangle beam's (phase 14)
             path = ("tri_contact_step" if name.startswith("banded")
@@ -2107,6 +2546,13 @@ def main() -> int:
         if name in tri64_t:
             entry["f64"] = {k: tri64_t[name][k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        if name in membrane64:
+            entry["f64"] = {k: membrane64[name][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        if name == "contract_G_Gw":
+            entry["laplacian_rows_k3"] = {
+                n: r["laplacian_rows_k3"] for n, r in solver_results.items()
+                if n in LAPLACIAN_SOLVERS}
         c = next((c for c in cases32 + tri32 if c["name"] == name), {})
         if t["key"] in contact_keys:
             entry["shapes"] = t["key"]
@@ -2134,6 +2580,10 @@ def main() -> int:
     log(json.dumps({"host_solvers": {
         n: {k: v for k, v in r.items() if k != "launches_by_kernel"}
         for n, r in host_results.items()}}))
+    log(json.dumps({"lattice_cg_shell_rod": {
+        n: {k: v for k, v in r.items() if k != "launches_by_kernel"}
+        for n, r in dict(lattice_results, shell_step=shell_result,
+                         rod_step=rod_result).items()}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

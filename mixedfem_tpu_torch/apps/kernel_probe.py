@@ -1,15 +1,17 @@
-"""Quick card check of K1 (element_apply) and K3 (contract_G_Gw) at both
-element shapes, for a kernels.cu edit before a whole chip_smoke.py run.
+"""Quick card check of K1 (element_apply), K3 (contract_G_Gw) and K7
+(contract_Gw) at every element shape, for a kernels.cu edit before a
+whole chip_smoke.py run.
 
     python -m mixedfem_tpu_torch.apps.kernel_probe [--against OTHER.cu]
 
 Builds csrc/kernels.cu (and prints ptxas's register report of each
-kernel), holds both instances of K1 and K3 (tets: k=4, d=3, N=6;
-triangles: k=3, d=2, N=3) to their plain versions in float32 (1e-5 of
+kernel), holds every instance of K1 (tets: k=4, d=3, N=6; triangles:
+k=3, d=2, N=3; shells: k=3, d=3, N=6; rods: k=2, d=3, N=6), K3's (tets
+and triangles) and K7's (shells and rods) to their plain versions in float32 (1e-5 of
 scale) and float64 (1e-12) at E = 1, 31, 33, 103 and 100,000 random
-elements, and, with --against, compares the tet instances bit for bit
-with the same entry points built from another kernels.cu (the parent
-commit's, say). At E = 100,000 it prints each kernel's time over 20
+elements, and, with --against, compares the tet instances of K1 and K3
+bit for bit with the same entry points built from another kernels.cu
+(the parent commit's, say). At E = 100,000 it prints each kernel's time over 20
 back-to-back launches on the same inputs: that loop is bound by the
 host's enqueue, not the card (chip_smoke.py's device_ms times the
 kernels). Last, two float64 steps of a 2D cantilever, card against CPU.
@@ -71,7 +73,8 @@ def check_kernels(other) -> bool:
     ok = True
     for dt, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
         sfx = "f32" if dt == torch.float32 else "f64"
-        for (k, d), (N, _, _) in cuda.SHAPES.items():
+        for (k, d), shape in cuda.SHAPES.items():
+            N = shape.N
             for E in (1, 31, 33, 103, 100000):
                 nv = max(E, 4)
                 T = torch.randint(0, nv, (E, k), generator=g, device=dev,
@@ -81,16 +84,26 @@ def check_kernels(other) -> bool:
                 p = rnd((nv, d), dt)
                 D, dphi, Hs = rnd((E, N, d, d), dt), rnd((E, k, d), dt), rnd((E, N, N), dt)
                 vols = rnd((E,), dt).abs() + 0.1
-                y = cuda.element_apply(T, Gw, mass, fm, p)
-                G, Gw2 = cuda.contract_G_Gw(D, dphi, Hs, vols)
-                ref = (top.element_apply_plain(T, Gw, mass, fm, p),
-                       *smallops.contract_G_Gw_plain(D, dphi, Hs, vols))
+                G7 = rnd((E, N, k, d), dt)
+                outs = [cuda.element_apply(T, Gw, mass, fm, p)]
+                ref = [top.element_apply_plain(T, Gw, mass, fm, p)]
+                if shape.k3 is not None:
+                    outs += cuda.contract_G_Gw(D, dphi, Hs, vols)
+                    ref += smallops.contract_G_Gw_plain(D, dphi, Hs, vols)
+                else:
+                    outs.append(cuda.contract_Gw(Hs, G7, vols))
+                    ref.append(smallops.contract_Gw_plain(Hs, G7, vols))
                 torch.cuda.synchronize()
                 errs = [((a - b).abs().max() / b.abs().max()).item()
-                        for a, b in zip((y, G, Gw2), ref)]
+                        for a, b in zip(outs, ref)]
                 good = all(e <= tol for e in errs)
-                line = (f"{sfx} k{k}d{d} E {E}: rel err K1 {errs[0]:.2e} K3 G "
-                        f"{errs[1]:.2e} Gw {errs[2]:.2e} {'ok' if good else 'FAIL'}")
+                line = (f"{sfx} k{k}d{d} E {E}: rel err K1 {errs[0]:.2e} "
+                        + (f"K3 G {errs[1]:.2e} Gw {errs[2]:.2e}"
+                           if shape.k3 is not None else f"K7 {errs[1]:.2e}")
+                        + f" {'ok' if good else 'FAIL'}")
+                y = outs[0]
+                if shape.k3 is not None:
+                    G, Gw2 = outs[1], outs[2]
                 if other is not None and k == 4:
                     o1, o2, o3 = (torch.empty_like(t) for t in (y, G, Gw2))
                     other("element_apply", sfx, T.data_ptr(), Gw.data_ptr(),
@@ -107,9 +120,13 @@ def check_kernels(other) -> bool:
                 print(line, flush=True)
                 ok = ok and good
                 if E == 100000:
+                    other_us = (
+                        f"K3 {_hot_us(cuda.contract_G_Gw, D, dphi, Hs, vols):.2f}"
+                        if shape.k3 is not None else
+                        f"K7 {_hot_us(cuda.contract_Gw, Hs, G7, vols):.2f}")
                     print(f"   K1 {_hot_us(cuda.element_apply, T, Gw, mass, fm, p):.2f} us, "
-                          f"K3 {_hot_us(cuda.contract_G_Gw, D, dphi, Hs, vols):.2f} us "
-                          f"(20 launches back to back: host enqueue)", flush=True)
+                          f"{other_us} us (20 launches back to back: host enqueue)",
+                          flush=True)
     return ok
 
 

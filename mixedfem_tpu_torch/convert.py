@@ -38,12 +38,17 @@ _MESH_FIELDS = (
 
 
 def mesh_from_numpy(d: Mapping, dtype, device) -> MeshData:
-    """A 3D tet or 2D triangle solid (shells and rods are not ported)."""
-    if d.get("shell") or d.get("rod") or d.get("dim", 3) not in (2, 3):
-        raise NotImplementedError("only tet and triangle solids are ported")
+    """A 3D tet or 2D triangle solid, a shell (with its rest normals) or
+    rods (with their rest frames and lengths)."""
+    if d.get("dim", 3) not in (2, 3):
+        raise NotImplementedError(f"meshes of dimension {d.get('dim')}")
+    shell, rod = bool(d.get("shell")), bool(d.get("rod"))
     return mesh_from_arrays(
         **{k: d[k] for k in _MESH_FIELDS}, models=tuple(d["models"]),
-        dtype=dtype, device=device,
+        dtype=dtype, device=device, shell=shell, rod=rod,
+        rest_normal=d.get("rest_normal") if shell else None,
+        rod_frames=d.get("rod_frames") if rod else None,
+        rod_L=d.get("rod_L") if rod else None,
     )
 
 

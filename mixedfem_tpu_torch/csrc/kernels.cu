@@ -1,5 +1,5 @@
 // Hand-written Hopper (sm_90a) kernels of the mixed-stretch implicit step,
-// unstructured (K1-K4) and on structured box grids (K5, K6). One
+// unstructured (K1-K4, K7) and on structured box grids (K5, K6). One
 // translation unit with a plain C interface, built by
 // mixedfem_tpu_torch/cuda.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -10,7 +10,9 @@
 // (k = 4 corners, d = 3, N = 6 stretch values; entry points without a shape
 // suffix) and 2D linear triangles (k = 3, d = 2, N = 3; entry points
 // _k3d2 and _n3). The tet instance is the same code as before the shape
-// became a parameter, so its sums run in the same order.
+// became a parameter, so its sums run in the same order. K1 has two more
+// instances, shells (3D triangles: k = 3, d = 3, N = 6; _k3d3) and rods
+// (3D segments: k = 2, d = 3, N = 6; _k2d3), and K7 those two shapes.
 //
 // K1 element_apply  replaces the gather/apply half of
 //     mixedfem_tpu/ops/brick.py:_matvec_kernel (via _matvec_call,
@@ -21,7 +23,10 @@
 //     Bound: bytes. Gw (72), mass (16), T (4 ints) and y_e (12) per element,
 //     ~42 MB at 100k tets f32, ~12.5 us at 3.35 TB/s; 384 flop/element is
 //     negligible. Triangles (the instance <3, 2, 3>): Gw (18), mass (9), T
-//     (3 ints), y_e (6), ~14.4 MB at 100k triangles f32, ~4.3 us. Design:
+//     (3 ints), y_e (6), ~14.4 MB at 100k triangles f32, ~4.3 us. Shells
+//     (<3, 3, 6>): Gw (54), mass (9), T (3 ints), y_e (9), ~30 MB at 100k
+//     triangles f32, ~9 us. Rods (<2, 3, 6>): Gw (36), mass (4), T (2
+//     ints), y_e (6), ~20 MB at 100k segments f32, ~6 us. Design:
 //     the per-element rows are streamed once, p and the mask are gathered
 //     (they fit in L2), the sums stay in registers, and the per-corner rows
 //     go to K2 for a deterministic vertex sum (no atomics).
@@ -79,6 +84,22 @@
 //     spills. Measured at 100k tets on an NVIDIA H100 80GB HBM3 at 700 W:
 //     37.5 us in f32 (79% of its bound; TE 16 / 32 / 64: 37.6 / 37.4 /
 //     38.5 us) and 71.7 us in f64 (bound 59.0 us), from 270.95 us.
+//
+// K7 contract_Gw  replaces mixedfem_tpu/ops/smallops.py:_tr_kernel where
+//     contract_sym_G takes a G that comes from a Jacobian, not from D :
+//     dphi: shells (G (E, 6, 3, 3), 54 columns, from the re-linearized
+//     membrane Jacobian) and rods (G (E, 6, 2, 3), 36 columns, from the
+//     frame-augmented Jacobian), mixedfem_tpu/variables/mixed_stretch.py:
+//     90-104 and :65. Per element e:
+//       Gw[i,k,r] = sqrt(vol) sum_j Hs[i,j] G[j,k,r]
+//     K3's second half on a given G, with K3's staging: a block takes TE =
+//     32 consecutive elements, copies the Hs, vol and G spans into shared
+//     memory with cp.async, one thread per (element, corner k) forms
+//     Gw[:,k,:] (N x d sums over j ascending, then the sqrt(vol) product, as
+//     K3 does), and the block stores the Gw tile as one contiguous span. Bound: bytes. Hs (36), G and Gw
+//     (54 each) and vol (1) per shell, ~58 MB at 100k shells f32, ~17 us at
+//     3.35 TB/s; Hs (36), G and Gw (36 each) and vol per rod segment, ~45
+//     MB at 100k segments, ~13 us; ~1.2 kflop/element is negligible.
 //
 // K4 banded_sum  replaces mixedfem_tpu/ops/pallas_scatter.py:_make_kernel
 //     (via _scatter_call, scatter_add_sorted): out[v] = sum of the rows
@@ -440,6 +461,73 @@ __global__ void __launch_bounds__(S::K * TE) contract_G_Gw_kernel(
   copy_span<T, false>(Gw + S::G * e0, sGw, S::G * n * sz, u.Gw);
 }
 
+// K7's element shape: K corners in DIM dimensions, N stretch values, and
+// the values per element of Hs and of G (and Gw); a tile's spans lie in
+// shared memory in the order Hs, vol, G, Gw
+template <int K_, int DIM_, int N_>
+struct K7Shape {
+  static constexpr int K = K_, DIM = DIM_, N = N_;
+  static constexpr int Hs = N * N, G = N * K * DIM;
+  static constexpr int Vals = Hs + 1 + 2 * G;
+};
+constexpr int kK7Tile = 32;  // elements per block, K3's tile
+
+// copy unit of each global array of K7
+struct K7Units {
+  int Hs, G, vol, Gw;
+};
+
+// one block per tile of TE elements of shape S, a thread per (element,
+// corner)
+template <typename T, int TE, typename S>
+__global__ void __launch_bounds__(S::K * TE) contract_Gw_kernel(
+    const T* __restrict__ Hs, const T* __restrict__ G,
+    const T* __restrict__ vol, T* __restrict__ Gw, int n_elem, K7Units u) {
+  constexpr int K = S::K, DIM = S::DIM, N = S::N;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sHs = reinterpret_cast<T*>(smem_raw);
+  T* sVol = sHs + S::Hs * TE;
+  T* sG = sVol + TE;
+  T* sGw = sG + S::G * TE;
+  const size_t e0 = static_cast<size_t>(blockIdx.x) * TE;
+  const int n = min(TE, n_elem - static_cast<int>(e0));
+  const int sz = static_cast<int>(sizeof(T));
+  copy_span<T, true>(sHs, Hs + S::Hs * e0, S::Hs * n * sz, u.Hs);
+  copy_span<T, true>(sVol, vol + e0, n * sz, u.vol);
+  copy_span<T, true>(sG, G + S::G * e0, S::G * n * sz, u.G);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  const int el = threadIdx.x / K, k = threadIdx.x % K;
+  if (el < n) {
+    const T* gi = sG + S::G * el + DIM * k;
+    T g[N * DIM];
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+#pragma unroll
+      for (int r = 0; r < DIM; ++r) g[DIM * j + r] = gi[K * DIM * j + r];
+    }
+    const T sq = sqrt(sVol[el]);
+    const T* h = sHs + S::Hs * el;
+    T* wo = sGw + S::G * el + DIM * k;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      T hi[N];
+#pragma unroll
+      for (int j = 0; j < N; ++j) hi[j] = h[N * i + j];
+#pragma unroll
+      for (int r = 0; r < DIM; ++r) {
+        T acc = T(0);
+#pragma unroll
+        for (int j = 0; j < N; ++j) acc += hi[j] * g[DIM * j + r];
+        wo[K * DIM * i + r] = sq * acc;
+      }
+    }
+  }
+  __syncthreads();
+  copy_span<T, false>(Gw + S::G * e0, sGw, S::G * n * sz, u.Gw);
+}
+
 // K5's planes: the used offsets, ascending, as flat lattice shifts and as
 // the first of their 9 rows of W (9 o); passed by value
 struct K5Planes {
@@ -744,6 +832,24 @@ int launch_contract_tile(const T* D, const T* dphi, const T* Hs, const T* vol,
   }
 }
 
+// K7 for elements of shape S
+template <typename T, typename S>
+int launch_contract_Gw(const T* Hs, const T* G, const T* vol, T* Gw, int n_elem,
+                       void* stream) {
+  if (n_elem <= 0) return static_cast<int>(cudaSuccess);
+  constexpr int TE = kK7Tile;
+  auto kernel = contract_Gw_kernel<T, TE, S>;
+  const size_t smem = static_cast<size_t>(S::Vals) * TE * sizeof(T);
+  cudaError_t err = cudaSuccess;
+  if (smem > 48 * 1024)  // opt in above the default 48 KB
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const K7Units u{copy_unit(Hs), copy_unit(G), copy_unit(vol), copy_unit(Gw)};
+  kernel<<<(n_elem + TE - 1) / TE, S::K * TE, smem, static_cast<cudaStream_t>(stream)>>>(
+      Hs, G, vol, Gw, n_elem, u);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // K1 for elements of K corners in DIM dimensions with N stretch values
 template <typename T, int K, int DIM, int N>
 int launch_element_apply(const int* tets, const T* gw, const T* mass, const T* free_mask,
@@ -840,6 +946,28 @@ const char* mf_error_string(int code) {
                                   int n_elem, void* stream) {                 \
     return launch_element_apply<T, 3, 2, 3>(tris, gw, mass, free_mask, p, out, \
                                             n_elem, stream);                  \
+  }                                                                            \
+  int mf_element_apply_k3d3_##SFX(const int* tris, const T* gw, const T* mass, \
+                                  const T* free_mask, const T* p, T* out,     \
+                                  int n_elem, void* stream) {                 \
+    return launch_element_apply<T, 3, 3, 6>(tris, gw, mass, free_mask, p, out, \
+                                            n_elem, stream);                  \
+  }                                                                            \
+  int mf_element_apply_k2d3_##SFX(const int* segs, const T* gw, const T* mass, \
+                                  const T* free_mask, const T* p, T* out,     \
+                                  int n_elem, void* stream) {                 \
+    return launch_element_apply<T, 2, 3, 6>(segs, gw, mass, free_mask, p, out, \
+                                            n_elem, stream);                  \
+  }                                                                            \
+  int mf_contract_Gw_k3d3_##SFX(const T* Hs, const T* G, const T* vol, T* Gw,  \
+                                int n_elem, void* stream) {                   \
+    return launch_contract_Gw<T, K7Shape<3, 3, 6>>(Hs, G, vol, Gw, n_elem,     \
+                                                   stream);                   \
+  }                                                                            \
+  int mf_contract_Gw_k2d3_##SFX(const T* Hs, const T* G, const T* vol, T* Gw,  \
+                                int n_elem, void* stream) {                   \
+    return launch_contract_Gw<T, K7Shape<2, 3, 6>>(Hs, G, vol, Gw, n_elem,     \
+                                                   stream);                   \
   }                                                                            \
   int mf_contract_G_Gw_##SFX(const T* D, const T* dphi, const T* Hs,          \
                              const T* vol, T* G, T* Gw, int n_elem,           \

@@ -24,6 +24,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -36,10 +37,9 @@ NVCC_FLAGS = (
 )
 
 # launches per kernel (segment_sum and banded_sum counted per row width m,
-# element_apply and contract_G_Gw per element shape: the tet instances
-# under the plain names, the triangle instances as element_apply_k3d2 and
-# contract_G_Gw_n3); a caller clears it before a run and reads it after, to
-# show the run went through the kernels
+# element_apply, contract_G_Gw and contract_Gw per element shape under the
+# names SHAPES gives them); a caller clears it before a run and reads it
+# after, to show the run went through the kernels
 LAUNCHES: collections.Counter = collections.Counter()
 
 _lib = None
@@ -90,18 +90,21 @@ def _load():
         return _lib
     lib = ctypes.CDLL(str(build()))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
+    k1_k3 = [n for sh in SHAPES.values() for n in (sh.k1, sh.k3) if n]
+    k7 = [sh.k7 for sh in SHAPES.values() if sh.k7]
     for suffix in ("f32", "f64"):
-        for name in ("element_apply", "element_apply_k3d2", "contract_G_Gw",
-                     "contract_G_Gw_n3"):
+        for name in k1_k3:
             getattr(lib, f"mf_{name}_{suffix}").argtypes = [vp] * 6 + [i32, vp]
+        for name in k7:
+            getattr(lib, f"mf_{name}_{suffix}").argtypes = [vp] * 4 + [i32, vp]
         getattr(lib, f"mf_contract_G_Gw_tile_{suffix}").argtypes = [vp] * 6 + [i32] * 2 + [vp]
         for name in ("segment_sum", "banded_sum"):
             getattr(lib, f"mf_{name}_{suffix}").argtypes = [vp] * 7 + [i32] * 4 + [vp]
         getattr(lib, f"mf_stencil_apply_{suffix}").argtypes = [vp] * 4 + [i32] * 4 + [vp]
         getattr(lib, f"mf_stencil_assemble_{suffix}").argtypes = [vp] * 6 + [i32] * 6 + [vp]
-        for name in ("element_apply", "element_apply_k3d2", "segment_sum",
-                     "contract_G_Gw", "contract_G_Gw_n3", "contract_G_Gw_tile",
-                     "banded_sum", "stencil_apply", "stencil_assemble"):
+        for name in k1_k3 + k7 + ["segment_sum", "contract_G_Gw_tile",
+                                  "banded_sum", "stencil_apply",
+                                  "stencil_assemble"]:
             getattr(lib, f"mf_{name}_{suffix}").restype = i32
     lib.mf_error_string.argtypes = [i32]
     lib.mf_error_string.restype = ctypes.c_char_p
@@ -141,15 +144,29 @@ def _launch(fn_name: str, suffix: str, *args) -> None:
         raise RuntimeError(f"CUDA kernel {fn_name} failed: {msg} ({code})")
 
 
-# the element shapes (corners k, dimension d) -> (stretch values N, K1's
-# name, K3's name): tets and triangles
+class Shape(NamedTuple):
+    """An element shape's stretch values N and its kernels' names: K1's,
+    K3's (solids, whose G is D : dphi) or K7's (shells and rods, whose G
+    comes from a Jacobian)."""
+
+    N: int
+    k1: str
+    k3: Optional[str]
+    k7: Optional[str]
+
+
+# the element shapes, keyed by (corners k, dimension d): tets, 2D
+# triangles, shells (3D triangles) and rods (3D segments). A shell and a 2D
+# triangle both have k = 3, so the key is the pair.
 SHAPES = {
-    (4, 3): (6, "element_apply", "contract_G_Gw"),
-    (3, 2): (3, "element_apply_k3d2", "contract_G_Gw_n3"),
+    (4, 3): Shape(6, "element_apply", "contract_G_Gw", None),
+    (3, 2): Shape(3, "element_apply_k3d2", "contract_G_Gw_n3", None),
+    (3, 3): Shape(6, "element_apply_k3d3", None, "contract_Gw_k3d3"),
+    (2, 3): Shape(6, "element_apply_k2d3", None, "contract_Gw_k2d3"),
 }
 
 
-def _shape(k: int, d: int):
+def _shape(k: int, d: int) -> Shape:
     if (k, d) not in SHAPES:
         raise ValueError(f"elements of {k} corners in {d} dimensions: the "
                          f"kernels have instances for {sorted(SHAPES)}")
@@ -158,13 +175,14 @@ def _shape(k: int, d: int):
 
 def element_apply(T, Gw, mass, free_mask, p) -> torch.Tensor:
     """K1: per-corner rows (E, k, d) of (M_e (x) I + Gw_e^T Gw_e) P p_e, for
-    tets (k=4, d=3, Gw (E, 6, 4, 3)) or triangles (k=3, d=2, Gw (E, 3, 3,
-    2))."""
+    tets (k=4, d=3, Gw (E, 6, 4, 3)), triangles (k=3, d=2, Gw (E, 3, 3,
+    2)), shells (k=3, d=3, Gw (E, 6, 3, 3)) or rods (k=2, d=3, Gw (E, 6, 2,
+    3))."""
     sfx = _float_dtype(p)
     dev, dt = p.device, p.dtype
     E, k = T.shape[0], T.shape[-1]
     nv, d = p.shape[0], p.shape[-1]
-    N, name, _ = _shape(k, d)
+    N, name, _, _ = _shape(k, d)
     _check(T, "T", (E, k), torch.int32, dev)
     _check(Gw, "Gw", (E, N, k, d), dt, dev)
     _check(mass, "mass", (E, k, k), dt, dev)
@@ -253,7 +271,10 @@ def _contract_G_Gw(D, dphi, Hs, vols, tile):
     sfx = _float_dtype(D)
     dev, dt = D.device, D.dtype
     E, k, d = dphi.shape[0], dphi.shape[1], dphi.shape[-1]
-    N, _, name = _shape(k, d)
+    N, _, name, _ = _shape(k, d)
+    if name is None:
+        raise ValueError(f"K3 has no instance for elements of {k} corners in "
+                         f"{d} dimensions: their G is a Jacobian's (K7)")
     _check(D, "D", (E, N, d, d), dt, dev)
     _check(dphi, "dphi", (E, k, d), dt, dev)
     _check(Hs, "Hs", (E, N, N), dt, dev)
@@ -268,6 +289,29 @@ def _contract_G_Gw(D, dphi, Hs, vols, tile):
         _launch("contract_G_Gw_tile", sfx, *args, tile)
     LAUNCHES[name] += 1
     return G, Gw
+
+
+def contract_Gw(Hs, G, vols):
+    """K7: Gw = sqrt(vol) Hs G, (E, N, k, d), from a given G (E, N, k, d),
+    Hs (E, N, N) and vol (E,), for shells (k=3, d=3) and rods (k=2,
+    d=3)."""
+    sfx = _float_dtype(G)
+    dev, dt = G.device, G.dtype
+    if G.dim() != 4:
+        raise ValueError(f"G has shape {tuple(G.shape)}, expected (E, N, k, d)")
+    E, _, k, d = G.shape
+    N, _, _, name = _shape(k, d)
+    if name is None:
+        raise ValueError(f"K7 has no instance for elements of {k} corners "
+                         f"in {d} dimensions: their G and Gw come from K3")
+    _check(Hs, "Hs", (E, N, N), dt, dev)
+    _check(G, "G", (E, N, k, d), dt, dev)
+    _check(vols, "vols", (E,), dt, dev)
+    Gw = torch.empty((E, N, k, d), dtype=dt, device=dev)
+    _launch(name, sfx, Hs.data_ptr(), G.data_ptr(), vols.data_ptr(),
+            Gw.data_ptr(), E)
+    LAUNCHES[name] += 1
+    return Gw
 
 
 def banded_sum(row_ptr, slots, rows, nv: int, piece_ptr=None,

@@ -218,8 +218,9 @@ def _load_object_mesh(path: str, dim: int, normalize: bool):
         return V[:, :2].copy(), T
     if path.lower().endswith(".obj"):
         raise NotImplementedError(
-            "3D triangle meshes (shells) are not ported: 3D objects are .mesh "
-            "tets")
+            "a 3D .obj (a shell): the scene loader reads 3D objects as .mesh "
+            "tets, as the JAX package's does; shells are built with "
+            "mesh.build_mesh_data(..., shell=True)")
     V, T, _ = mesh_io.read_mesh(path)
     return (V / V.max() if normalize else V), T
 

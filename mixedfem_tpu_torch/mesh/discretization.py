@@ -1,6 +1,7 @@
-"""Host-side (numpy, f64) linear tet and triangle discretization
-precompute: a copy of the solid part of mixedfem_tpu/mesh/discretization.py,
-with its surface extraction (boundary_facets, edges).
+"""Host-side (numpy, f64) discretization precompute of linear tets, 2D
+triangles and 3D membrane triangles (shells): a copy of
+mixedfem_tpu/mesh/discretization.py, with its surface extraction
+(boundary_facets, edges).
 
 Conventions (identical to the reference):
 - F_e = sum_k x[T[e,k]] dphi_k/dX^T, i.e. F[r,c] = sum_k x_k[r] dphidX[k,c].
@@ -54,16 +55,47 @@ def tri2d_dphidX(V: np.ndarray, T: np.ndarray) -> np.ndarray:
     return dphi
 
 
-def consistent_mass_coeff(vols: np.ndarray, density: np.ndarray, k: int = 4):
+def tri3d_dphidX(V: np.ndarray, T: np.ndarray) -> np.ndarray:
+    """(E, 3, 3) in-plane shape-function gradients of 3D membrane
+    triangles: grad phi_{1,2} are the columns of Dm (Dm^T Dm)^{-1}, and
+    grad phi_0 = -(grad phi_1 + grad phi_2)."""
+    e1 = V[T[:, 1]] - V[T[:, 0]]
+    e2 = V[T[:, 2]] - V[T[:, 0]]
+    Dm = np.stack([e1, e2], axis=-1)  # (E, 3, 2)
+    G2 = np.linalg.inv(np.einsum("eik,eil->ekl", Dm, Dm))  # (E, 2, 2)
+    grad12 = np.einsum("eik,ekl->eil", Dm, G2)  # (E, 3, 2) columns
+    dphi = np.empty((len(T), 3, 3), dtype=V.dtype)
+    dphi[:, 1, :] = grad12[:, :, 0]
+    dphi[:, 2, :] = grad12[:, :, 1]
+    dphi[:, 0, :] = -(dphi[:, 1] + dphi[:, 2])
+    return dphi
+
+
+def tri3d_rest_normals(V: np.ndarray, T: np.ndarray) -> np.ndarray:
+    """(E, 3) unit normals of 3D triangles at rest."""
+    n = np.cross(V[T[:, 1]] - V[T[:, 0]], V[T[:, 2]] - V[T[:, 0]])
+    return n / np.linalg.norm(n, axis=1, keepdims=True)
+
+
+def consistent_mass_coeff(vols: np.ndarray, density: np.ndarray, k: int = 4,
+                          shell: bool = False):
     """(E, k, k) per-element consistent mass blocks (scalar per vertex pair;
     the d-dim block is coeff * I_d):
       tets (k=4):      M_kl = rho * vol * (1 + delta_kl) / 20
       triangles (k=3): M_kl = rho * area * (1 + delta_kl) / 12, with
-                       area = vols / 2, as vols holds DOUBLE areas."""
-    if k not in (3, 4):
-        raise NotImplementedError("only linear tets and triangles are ported")
+                       area = vols / 2, as vols holds DOUBLE areas
+      shells (k=3):    M_kl = rho * vols * (1 + delta_kl) / 12, vols
+                       already carrying the thickness factor."""
+    if k not in (3, 4) or (shell and k != 3):
+        raise ValueError(f"no consistent mass of {k}-corner elements"
+                         + (" (shells are triangles)" if shell else ""))
     base = 1.0 + np.eye(k)
-    w = density * vols / 20.0 if k == 4 else density * (vols / 2.0) / 12.0
+    if k == 4:
+        w = density * vols / 20.0
+    elif shell:
+        w = density * vols / 12.0
+    else:
+        w = density * (vols / 2.0) / 12.0
     return w[:, None, None] * base[None]
 
 

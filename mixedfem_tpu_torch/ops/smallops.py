@@ -5,7 +5,9 @@ a Pallas lane transpose (ops/smallops.py:_tr_kernel), a TPU layout device.
 Here the plain forms are einsums, and the pair that the coefficient build
 needs, G = D : dphi and Gw = sqrt(vol) Hs G, is one fused per-element pass:
 ``contract_G_Gw``, kernel K3 (csrc/kernels.cu:contract_G_Gw_kernel) on a
-CUDA tensor.
+CUDA tensor. Where G is given (shells and rods, whose G comes from a
+Jacobian), ``contract_Gw`` forms Gw alone: kernel K7
+(csrc/kernels.cu:contract_Gw_kernel) on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -43,6 +45,22 @@ def contract_G_Gw(D, dphi, Hs, vols):
     return cuda.contract_G_Gw(
         D.contiguous(), dphi.contiguous(), Hs.contiguous(), vols.contiguous()
     )
+
+
+def contract_Gw_plain(Hs, G, vols):
+    """Plain PyTorch version of K7: sqrt(vol) Hs G."""
+    return torch.sqrt(vols)[:, None, None, None] * contract_sym_G(Hs, G)
+
+
+def contract_Gw(Hs, G, vols):
+    """Gw = sqrt(vol) Hs G, (E, N, k, d), from Hs (E, N, N), a given G (E,
+    N, k, d) and vol (E,): shells and rods on the card (cuda.SHAPES).
+
+    On a CUDA tensor this launches kernel K7 (its instance for the shape);
+    on a CPU tensor it runs contract_Gw_plain."""
+    if G.device.type == "cpu":
+        return contract_Gw_plain(Hs, G, vols)
+    return cuda.contract_Gw(Hs.contiguous(), G.contiguous(), vols.contiguous())
 
 
 def sym_reconstruct(V: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

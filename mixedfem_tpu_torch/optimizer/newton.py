@@ -2,9 +2,10 @@
 mixedfem_tpu/optimizer/newton.py:newton_step and its on-device solve
 paths).
 
-One call is one implicit BDF step of a 3D tet or 2D triangle solid with
-the mixed-stretch variable, the vanilla (F-space) stretch variable or both
-and, when the state carries contact frames, IPC contact (the
+One call is one implicit BDF step of a 3D tet or 2D triangle solid, a
+shell (3D triangles) or rods (3D segments) with the mixed-stretch
+variable, the vanilla (F-space) stretch variable or both and, when the
+state carries contact frames, IPC contact (the
 mixed-collision variable, the nodal collision barrier, lagged friction):
 
   press forces -> Laplacian setup -> lagged friction set -> [ update ->
@@ -34,10 +35,14 @@ on the card), through K4 (and K1 + K4 for those), as the JAX step's
 assembles once per Newton iteration: with no coarse space or a grid one,
 and 'pcg' or 'pcg-block-jacobi', the whole iteration
 follows the JAX step's row body (lattice CG, lattice preconditioner, the
-alpha-parametrized merit), with a geometric one, with contact, or with a
-solver other than 'pcg' and 'pcg-block-jacobi', the generic body (the
-configuration of the JAX package's entry()). Stencil plans are 3D only,
-as in the JAX package; 2D meshes run the generic body. The full-system
+alpha-parametrized merit), or, where the JAX step refuses that body (an
+inertia blend other than 1, a recorded vanilla gradient), the generic body
+with the same lattice-resident CG ('lattice_cg', one lattice round trip
+per solve); with a geometric one, with contact, or with a
+solver other than 'pcg' and 'pcg-block-jacobi', the generic body with the
+stencil matvec (the configuration of the JAX package's entry()). Stencil
+plans are 3D only, as in the JAX package; 2D meshes run the generic body.
+Shells ignore every plan, as in the JAX step. The full-system
 paths sum their x rows over the mesh's incidence plan whatever plan is
 given, as the JAX package's segment sums do.
 
@@ -283,17 +288,24 @@ def check_state(solver: str, config: SimConfig, have_frames: bool,
 
 
 def _select_body(config: SimConfig, solver: str, coarse, matvec_plan,
-                 contact: bool, dim: int) -> str:
-    """'grid', 'stencil' or 'generic', as the JAX step selects its Newton
-    body (mixedfem_tpu/optimizer/newton.py:387-405 and :611-633): the
-    lattice body for 'pcg' and 'pcg-block-jacobi' only, and never with
-    contact, the vanilla variable or a recorded vanilla gradient; raises
-    for the stencil branch this port does not cover, for a stencil plan
-    of a 2D mesh, which the JAX package's build_stencil_plan would not
-    make, and for a stencil plan without the mixed variable or with the
-    vanilla one (the JAX step then hands the plan to its gather matvec,
-    which does not take it)."""
-    if not isinstance(matvec_plan, stmod.StencilPlan):
+                 contact: bool, dim: int, *, shell: bool = False,
+                 rod: bool = False, hp: bool = False) -> str:
+    """'grid', 'lattice_cg', 'stencil' or 'generic', as the JAX step selects
+    its Newton body and linear solve (mixedfem_tpu/optimizer/newton.py:
+    387-405 `use_stencil_rows`, :773-783 `use_stencil`, :858-863
+    `use_stencil_cg`). A stencil plan with 'pcg' or 'pcg-block-jacobi', no
+    contact and no coarse space or a grid one runs on the lattice: the row
+    body ('grid') where the JAX step allows it, else the generic body with
+    the lattice-resident CG ('lattice_cg': an inertia blend other than 1,
+    f64 islands (`hp`), warm-started rotations, a recorded vanilla
+    gradient, rods). Any other solver, contact or a geometric coarse space
+    takes the generic body with the stencil matvec ('stencil'). A shell
+    ignores every plan, as in the JAX step ('generic'). Raises for a
+    stencil plan of a 2D mesh, which the JAX package's build_stencil_plan
+    would not make, and for a stencil plan without the mixed variable or
+    with the vanilla one (the JAX step then hands the plan to its gather
+    matvec, which does not take it)."""
+    if not isinstance(matvec_plan, stmod.StencilPlan) or shell:
         return "generic"
     if dim != 3:
         raise ValueError("a stencil plan of a 2D mesh: stencil plans are 3D")
@@ -303,16 +315,12 @@ def _select_body(config: SimConfig, solver: str, coarse, matvec_plan,
             "a stencil plan without the mixed-stretch variable or with the "
             "vanilla stretch variable")
     if (contact or solver not in ("pcg", "pcg-block-jacobi")
-            or config.record_vanilla_gradient
             or (coarse is not None and coarse.grid is None)):
         return "stencil"
-    if config.inertia_blend_factor != 1.0:
-        # the JAX step runs its element-major lattice-CG branch here
-        raise NotImplementedError(
-            "a stencil plan with inertia_blend_factor != 1 and no coarse "
-            "space or a grid one"
-        )
-    return "grid"
+    rows = (not rod and not hp and not config.rotation_warm_start
+            and not config.record_vanilla_gradient
+            and config.inertia_blend_factor == 1.0)
+    return "grid" if rows else "lattice_cg"
 
 
 def _line_search(E, eps_E: float, ls_iters: int, merit, alpha0: float = 1.0):
@@ -344,10 +352,12 @@ def newton_step(
     cell-major element order, through the lattice stencil (K5, K6): for
     'pcg' and 'pcg-block-jacobi' with no coarse space or a grid one
     (coarse.build_coarse_space_grid) the whole Newton iteration runs on
-    the lattice (the JAX step's row body), otherwise only the matvec and
-    the assemblies do. `gs_plan` (gauss_seidel.build_gs_plan) is required
-    by 'gauss-seidel'. Contact runs over `state.contact` (Simulation.step
-    builds it with the broadphase)."""
+    the lattice (the JAX step's row body) or, where that body is refused,
+    the whole CG solve does (_select_body), otherwise only the matvec and
+    the assemblies do; a shell ignores the plan. `gs_plan`
+    (gauss_seidel.build_gs_plan) is required by 'gauss-seidel'. Contact
+    runs over `state.contact` (Simulation.step builds it with the
+    broadphase)."""
     solver = check_supported(config)
     if solver in HOST_SOLVERS:
         raise ValueError(
@@ -411,7 +421,11 @@ def newton_step(
     if solver != "pcg":
         coarse = None
     body_kind = _select_body(config, solver, coarse, matvec_plan, any_contact,
-                             mesh.dim)
+                             mesh.dim, shell=mesh.shell, rod=mesh.rod)
+    if mesh.shell:
+        # the JAX step keeps shells off every plan: the assemblies sum over
+        # the mesh's incidence plan and the matvec is element_matvec
+        matvec_plan = None
     condensed = solver not in FULL_SYSTEM
     precond_out = state.precond
     Ac_inv = None
@@ -489,7 +503,7 @@ def newton_step(
                 if use_mixed:
                     b = b + meshmod.project_free(
                         mesh, assemble(ms.rhs_contrib(mesh, coeffs, s)))
-                if body_kind == "stencil":
+                if body_kind in ("stencil", "lattice_cg"):
                     # the offset-form blocks (K6); their o=0 plane is the
                     # exact block-Jacobi diagonal
                     W = stmod.assemble_W(matvec_plan, coeffs.Gw,
@@ -546,7 +560,7 @@ def newton_step(
                 dx, cg_iters, cg_err = condensed_solve(
                     x, b, blocks, coeffs, vcc, cc if use_contact else None,
                     contact_matvec if any_contact else None,
-                    W if body_kind == "stencil" else None)
+                    W if body_kind in ("stencil", "lattice_cg") else None)
             with record_function("newton.line_search"):
                 # --- local recovery of (ds, la) and of the contact (dd, la)
                 if use_mixed:
@@ -618,7 +632,15 @@ def newton_step(
     def condensed_solve(x, b, blocks, coeffs, vcc, cc, contact_matvec, W):
         """dx of the condensed SPD system (K1 + K2, K1 + K4, or the K5
         matvec, plus the contact Hessians' products): (dx, iterations,
-        error)."""
+        error). The lattice-CG body solves on the lattice with one round
+        trip (the JAX step's `use_stencil_cg` branch)."""
+        # warm start: the explicit-Euler prediction
+        dx0 = meshmod.project_free(mesh, target - x)
+        if body_kind == "lattice_cg":
+            dx_l, cg_iters, cg_err = lattice_pcg(
+                stmod.to_lat(matvec_plan, b), stmod.to_lat(matvec_plan, dx0),
+                blocks, W)
+            return stmod.from_lat(matvec_plan, dx_l), cg_iters, cg_err
         if solver in ("pcg-laplacian", "pcg-dualascent"):
             # (M + kL)^{-1} by Chebyshev, k = h^2 * the largest stretch
             # eigenvalue (coeffs.max_evals carry the h^2)
@@ -661,8 +683,6 @@ def newton_step(
                 out = out + contact_matvec(p)
             return out
 
-        # warm start: the explicit-Euler prediction
-        dx0 = meshmod.project_free(mesh, target - x)
         if solver == "gauss-seidel":
             return gsmod.gs_solve(
                 A, b, dx0, bj, gs_plan,
@@ -717,12 +737,33 @@ def newton_step(
                                  tol=config.itr_tol, cf=kkt_cf, cc=cc)
         return out[:-2], out[-2], out[-1]
 
-    if body_kind == "grid":
-        # per-step hoists of the lattice body
+    if body_kind in ("grid", "lattice_cg"):
+        # per-step hoists of the lattice solve
         plan = matvec_plan
         fm_l = stmod.to_lat(
             plan, mesh.free_mask[:, None].expand(mesh.nv, 3).to(dtype))
-        target_l = stmod.to_lat(plan, target)
+        if body_kind == "grid":
+            target_l = stmod.to_lat(plan, target)
+
+    def lattice_pcg(b_l, dx0_l, blocks, W):
+        """PCG on (3, npad) lattice vectors (the row body's and the
+        lattice-CG body's solve): the stencil matvec K5 with the free mask,
+        block-Jacobi from the regularized inverse blocks, and the grid
+        coarse space through the lattice two-level preconditioner."""
+        maskv = mesh.free_mask[:, None, None]
+        binv = pcgmod._small_inv(blocks * maskv + eye * (1.0 - maskv)) * maskv
+        Minv_lat = stmod.lattice_two_level_preconditioner(
+            plan, coarse, mesh.free_mask, binv, 3)
+
+        def Minv_l(rl):
+            return Minv_lat(rl, Ac_inv)
+
+        def A_l(pl_):
+            return stmod.matvec_lat(plan, W, pl_, fm_l)         # K5
+
+        return pcgmod.pcg(A_l, b_l, dx0_l, Minv_l,
+                          max_iters=config.max_iterative_solver_iters,
+                          tol=config.itr_tol)
 
     def grid_body(x, s, la, *contact):
         """The JAX step's lattice (row) body, element-major: lattice CG on
@@ -740,23 +781,9 @@ def newton_step(
             b_l = (rhs_l - Min_l) * fm_l
 
         with record_function("newton.pcg"):
-            maskv = mesh.free_mask[:, None, None]
-            binv = pcgmod._small_inv(blocks * maskv + eye * (1.0 - maskv)) * maskv
-            Minv_lat = stmod.lattice_two_level_preconditioner(
-                plan, coarse, mesh.free_mask, binv, 3)
-
-            def Minv_l(rl):
-                return Minv_lat(rl, Ac_inv)
-
-            def A_l(pl_):
-                return stmod.matvec_lat(plan, W, pl_, fm_l)      # K5
-
             x_l = stmod.to_lat(plan, x)
-            dx_l, cg_iters, cg_err = pcgmod.pcg(
-                A_l, b_l, (target_l - x_l) * fm_l, Minv_l,
-                max_iters=config.max_iterative_solver_iters,
-                tol=config.itr_tol,
-            )
+            dx_l, cg_iters, cg_err = lattice_pcg(
+                b_l, (target_l - x_l) * fm_l, blocks, W)
 
         with record_function("newton.line_search"):
             dx = stmod.from_lat(plan, dx_l)

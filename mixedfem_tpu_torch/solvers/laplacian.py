@@ -29,12 +29,21 @@ from mixedfem_tpu_torch.solvers import operator as opmod
 
 
 def laplacian_rows(mesh: meshmod.MeshData) -> torch.Tensor:
-    """(E, N, k, d) factored rows GwL of L = sum_e GwL^T GwL."""
+    """(E, N, k, d) factored rows GwL = sqrt(vol) G0 of L = sum_e GwL^T
+    GwL, G0 = D(I) : dphi the mixed-stretch Jacobian at the rest state. K3
+    with Hs = I forms exactly (G0, sqrt(vol) G0) (smallops.contract_G_Gw:
+    one launch on the card); the second is kept. Solids only, as in the
+    JAX package."""
+    if mesh.shell or mesh.rod:
+        raise NotImplementedError(
+            "laplacian preconditioner: solids only (it is built from the "
+            "solid mixed-stretch Jacobian)")
     E, d = mesh.T.shape[0], mesh.dim
     eye = torch.eye(d, dtype=mesh.vols.dtype, device=mesh.device).expand(E, d, d)
     D = rotation.dsdF(eye, eye, d)                     # (E, N, d, d)
-    G0 = smallops.contract_D_dphi(D, mesh.dphidX)      # (E, N, k, d)
-    return torch.sqrt(mesh.vols)[:, None, None, None] * G0
+    N = D.shape[1]
+    I = torch.eye(N, dtype=D.dtype, device=D.device).expand(E, N, N)
+    return smallops.contract_G_Gw(D, mesh.dphidX, I, mesh.vols)[1]
 
 
 def ml_operator(mesh: meshmod.MeshData, GwL: torch.Tensor, k,

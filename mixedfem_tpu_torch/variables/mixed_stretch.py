@@ -1,6 +1,6 @@
 """MixedStretch, the per-element symmetric stretch variable
-(port of mixedfem_tpu/variables/mixed_stretch.py, solid tets and
-triangles: N = 6 in 3D, 3 in 2D).
+(port of mixedfem_tpu/variables/mixed_stretch.py: tets, triangles, shells
+and rods; N = 6 in 3D, 3 in 2D).
 
 Per Newton iteration `update` produces the coefficients of the condensed
 SPD system:
@@ -25,6 +25,7 @@ import torch
 
 from mixedfem_tpu_torch.materials import models as mat
 from mixedfem_tpu_torch.mesh import mesh as meshmod
+from mixedfem_tpu_torch.mesh import rod as rodmod
 from mixedfem_tpu_torch.ops import assembly, psd, rotation, smallops, sym
 
 
@@ -59,21 +60,35 @@ def _material_terms(s, mu, lam, model_id, models, dt):
 
 def coeffs_from_FG(F, G, R, Sv, s, vols, mu, lam, model_id, models, dt):
     """Coefficient build from a precomputed G (the JAX package's shared
-    entry for its vertex-partitioned path). F is unused, as there."""
+    entry for its vertex-partitioned path, and the shells' and rods'):
+    Gw = sqrt(vol) Hs G by smallops.contract_Gw, kernel K7 on the card
+    (its shell and rod instances; a solid's G and Gw come from K3 in
+    `update`). F is unused, as there."""
     H, Hinv, Hs, evals, g = _material_terms(s, mu, lam, model_id, models, dt)
-    Gw = torch.sqrt(vols)[:, None, None, None] * smallops.contract_sym_G(Hs, G)
+    Gw = smallops.contract_Gw(Hs, G, vols)
     return StretchCoeffs(
         G=G, Gw=Gw, H=H, Hinv=Hinv, g=g, Sv=Sv, R=R, max_evals=evals
     )
 
 
 def update(mesh: meshmod.MeshData, x: torch.Tensor, s: torch.Tensor, dt):
-    """Rotations and derivatives at (x, s). G and Gw come from one fused
-    per-element pass (smallops.contract_G_Gw, kernel K3 on the card)."""
+    """Rotations and derivatives at (x, s). For solids G and Gw come from
+    one fused per-element pass (smallops.contract_G_Gw, kernel K3 on the
+    card). For shells and rods G = D : dF/dx, the Jacobian of their F
+    (mesh.shell_def_grad_jacobian, rod.rod_def_grad_jacobian), and Gw comes
+    from coeffs_from_FG (K7)."""
     F = meshmod.def_grad(mesh, x)
     R, S = rotation.polar(F, mesh.dim)
     Sv = sym.pack(S)
     D = rotation.dsdF(R, S, mesh.dim)                      # (E, N, d, d)
+    if mesh.shell or mesh.rod:
+        if mesh.shell:
+            JT = meshmod.shell_def_grad_jacobian(mesh, x)  # (E, k, r, a, c)
+        else:
+            JT = rodmod.rod_def_grad_jacobian(x, *meshmod._rod_args(mesh))
+        G = torch.einsum("eiac,ekrac->eikr", D, JT)
+        return coeffs_from_FG(F, G, R, Sv, s, mesh.vols, mesh.mu, mesh.lam,
+                              mesh.model_id, mesh.models, dt)
     H, Hinv, Hs, evals, g = _material_terms(
         s, mesh.mu, mesh.lam, mesh.model_id, mesh.models, dt
     )

@@ -13,7 +13,11 @@ the CPU's. The triangle instances of K1 and K3 are held to theirs at the
 100k-triangle shapes and at sizes off K3's tile, a float64 2D step matches
 the CPU's and two float32 runs of the 100k-triangle step repeat bit for
 bit. The host solve paths (direct, IC-PCG, AMG, and the vanilla stretch
-alone with the direct solve) step on the card as on the CPU. This file
+alone with the direct solve) step on the card as on the CPU. K7 is held
+to its plain version at the shell and rod shapes and K1's shell and rod
+instances to theirs, off K7's tile and from misaligned buffers; the
+Laplacian rows go through K3; shell and rod steps match the CPU's in
+float64, and two float32 shell steps repeat bit for bit. This file
 imports neither JAX nor the JAX package, so it also runs
 where only PyTorch is installed:
 
@@ -42,8 +46,8 @@ from mixedfem_tpu_torch.solvers import operator as top
 from mixedfem_tpu_torch.variables import mixed_stretch as tms
 
 from torch_parity import (  # noqa: F401 (one_torch_thread is a fixture)
-    beam_arrays, one_torch_thread, tri_arrays, write_contact_scene,
-    write_drop_scene,
+    beam_arrays, cloth_arrays, one_torch_thread, rod_arrays, tri_arrays,
+    write_contact_scene, write_drop_scene,
 )
 
 
@@ -724,11 +728,20 @@ def test_tri_wrappers_refuse_other_shapes(card):
     kernels have no instance of, and never hands it to the plain version."""
     f = lambda *s: torch.zeros(s, device=card)  # noqa: E731
     T = torch.zeros((2, 3), dtype=torch.int32, device=card)
+    T5 = torch.zeros((2, 5), dtype=torch.int32, device=card)
     cuda.LAUNCHES.clear()
     with pytest.raises(ValueError, match="instances"):
-        cuda.element_apply(T, f(2, 3, 3, 3), f(2, 3, 3), f(5), f(5, 3))
+        cuda.element_apply(T5, f(2, 6, 5, 3), f(2, 5, 5), f(5), f(5, 3))
     with pytest.raises(ValueError, match="instances"):
         cuda.contract_G_Gw(f(2, 6, 2, 2), f(2, 4, 2), f(2, 6, 6), f(2))
+    with pytest.raises(ValueError, match="instances"):
+        cuda.contract_Gw(f(2, 6, 6), f(2, 6, 5, 3), f(2))
+    # a tet's G and Gw come from K3 in one pass: K7 has no tet instance
+    with pytest.raises(ValueError, match="K3"):
+        cuda.contract_Gw(f(2, 6, 6), f(2, 6, 4, 3), f(2))
+    # a shell's G is a Jacobian's: K3 has no shell instance, K7 serves it
+    with pytest.raises(ValueError, match="Jacobian"):
+        cuda.contract_G_Gw(f(2, 6, 3, 3), f(2, 3, 3), f(2, 6, 6), f(2))
     with pytest.raises(ValueError):
         cuda.element_apply(T, f(2, 3, 3, 3), f(2, 3, 3), f(5), f(5, 2))
     with pytest.raises(ValueError, match="tets only"):
@@ -862,3 +875,143 @@ def test_vanilla_gradient_on_card_matches_cpu(card):
     # relative to the largest norm, as chip_smoke.py's phase 20 holds it
     np.testing.assert_allclose(g.stats.vanilla_grad.cpu().numpy(), vc.numpy(),
                                rtol=0, atol=1e-9 * vc.abs().max().item())
+
+
+# ---------------------------------------------------------------------------
+# shells and rods: K7 and K1's (3, 3, 6) and (2, 3, 6) instances
+# ---------------------------------------------------------------------------
+
+def _on_card(a, dtype, device, offset):
+    """`a` on the card, `offset` elements into its own buffer (a contiguous
+    view that is not 16-byte aligned when offset > 0)."""
+    buf = torch.zeros(a.size + offset, dtype=dtype, device=device)
+    buf[offset:] = torch.tensor(a.reshape(-1), dtype=dtype, device=device)
+    return buf[offset:].view(a.shape)
+
+
+@pytest.mark.parametrize("k,d", [(3, 3), (2, 3)])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_contract_Gw_matches_plain(card, dtype, offset, k, d):
+    """K7 at the shell (3, 3) and rod (2, 3) shapes, at E = 1, 31, 33, 103
+    and 100,003 (partial last tiles of 32), from aligned and misaligned
+    buffers, against contract_Gw_plain."""
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    N = cuda.SHAPES[(k, d)].N
+    for E in (1, 31, 33, 103, 100003):
+        rng = np.random.default_rng(E)
+        Hs = _on_card(rng.standard_normal((E, N, N)), dtype, card, offset)
+        G = _on_card(rng.standard_normal((E, N, k, d)), dtype, card, offset)
+        vols = _on_card(np.abs(rng.standard_normal(E)) + 0.1, dtype, card, offset)
+        cuda.LAUNCHES.clear()
+        got = smallops.contract_Gw(Hs, G, vols)
+        ref = smallops.contract_Gw_plain(Hs, G, vols)
+        torch.cuda.synchronize()
+        assert dict(cuda.LAUNCHES) == {cuda.SHAPES[(k, d)].k7: 1}
+        assert got.shape == ref.shape
+        assert (got - ref).abs().max().item() <= tol * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("k", [3, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_shell_rod_element_apply_matches_plain(card, dtype, k):
+    """K1's shell (3, 3, 6) and rod (2, 3, 6) instances at E = 1, 31, 33,
+    103 and 100,003 against element_apply_plain."""
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    name = cuda.SHAPES[(k, 3)].k1
+    for E in (1, 31, 33, 103, 100003):
+        g = torch.Generator(device=card).manual_seed(E)
+        nv = E + 2
+        T = torch.randint(0, nv, (E, k), generator=g, device=card,
+                          dtype=torch.int32)
+        Gw = torch.randn(E, 6, k, 3, generator=g, device=card, dtype=dtype)
+        mass = torch.randn(E, k, k, generator=g, device=card, dtype=dtype)
+        fm = (torch.rand(nv, generator=g, device=card) > 0.2).to(dtype)
+        p = torch.randn(nv, 3, generator=g, device=card, dtype=dtype)
+        cuda.LAUNCHES.clear()
+        got = cuda.element_apply(T, Gw, mass, fm, p)
+        ref = top.element_apply_plain(T, Gw, mass, fm, p)
+        torch.cuda.synchronize()
+        assert dict(cuda.LAUNCHES) == {name: 1}
+        assert (got - ref).abs().max().item() <= tol * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_laplacian_rows_on_k3(card, dtype):
+    """The Laplacian preconditioner's rows go through K3 (Hs = I, one
+    launch) and equal the plain rows sqrt(vol) D(I) : dphi to 1e-12 (f64)
+    or 1e-6 (f32) of scale; shells and rods are refused."""
+    from mixedfem_tpu_torch.solvers import laplacian as lapmod
+
+    tol = 1e-12 if dtype == torch.float64 else 1e-6
+    mesh, _ = _beam(dtype, card)
+    cuda.LAUNCHES.clear()
+    got = lapmod.laplacian_rows(mesh)
+    assert dict(cuda.LAUNCHES) == {"contract_G_Gw": 1}
+    E = mesh.nelem
+    eye = torch.eye(3, dtype=dtype, device=card).expand(E, 3, 3)
+    D = rotation.dsdF(eye, eye, 3)
+    ref = torch.sqrt(mesh.vols)[:, None, None, None] * smallops.contract_D_dphi(
+        D, mesh.dphidX)
+    torch.cuda.synchronize()
+    assert (got - ref).abs().max().item() <= tol * ref.abs().max().item()
+    V, T, kw = cloth_arrays()
+    shell = tmesh.build_mesh_data(V, T, dtype=dtype, device=card, **kw)
+    with pytest.raises(NotImplementedError):
+        lapmod.laplacian_rows(shell)
+
+
+def _shell_rod_mesh(kind, dtype, device):
+    if kind == "shell":
+        V, T, kw = cloth_arrays(6, 6)
+        return tmesh.build_mesh_data(V, T, dtype=dtype, device=device, **kw)
+    V, E, kw = rod_arrays(4)
+    return tmesh.build_rod_mesh_data(V, E, dtype=dtype, device=device, **kw)
+
+
+@pytest.mark.parametrize("kind", ["shell", "rod"])
+def test_shell_rod_steps_on_card_match_cpu(card, kind):
+    """Three float64 steps of the 6 x 6 cloth and of a 4-strand bundle
+    (default pcg, no coarse space) on the card, through K1, K7 and K2 and
+    not K3, against the CPU: positions to 1e-9 of scale, equal Newton and
+    CG counts."""
+    cfg = SimConfig(h=0.01, outer_steps=3, itr_tol=1e-8,
+                    max_iterative_solver_iters=2000,
+                    mixed_variables=("mixed-stretch",))
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        mesh = _shell_rod_mesh(kind, torch.float64, dev)
+        st = newton.init_state(mesh, cfg, (), mesh.V0.clone(),
+                               torch.zeros_like(mesh.V0))
+        cuda.LAUNCHES.clear()
+        for _ in range(3):
+            st = newton.newton_step(mesh, cfg, (), st)
+        out[dev.type] = (st, dict(cuda.LAUNCHES))
+    (g, launches), (c, none) = out["cuda"], out["cpu"]
+    k = 3 if kind == "shell" else 2
+    sh = cuda.SHAPES[(k, 3)]
+    assert not none
+    for name in (sh.k1, sh.k7, "segment_sum_m3", "segment_sum_m9"):
+        assert launches.get(name, 0) > 0, name
+    assert not any(n.startswith("contract_G_Gw") for n in launches)
+    np.testing.assert_allclose(g.x.cpu().numpy(), c.x.numpy(), rtol=0,
+                               atol=1e-9 * c.x.abs().max().item())
+    assert g.stats.iterations == c.stats.iterations
+    assert g.stats.solver_iters.tolist() == c.stats.solver_iters.tolist()
+
+
+def test_float32_shell_step_repeats_on_card(card):
+    """One float32 step of a 100 x 100 cloth (20,000 triangles) from rest,
+    twice from the same state: the runs agree bit for bit."""
+    V, T, kw = cloth_arrays(100, 100)
+    mesh = tmesh.build_mesh_data(V, T, dtype=torch.float32, device=card, **kw)
+    cfg = SimConfig(h=0.01, outer_steps=5, newton_tol=0.0, itr_tol=1e-4,
+                    mixed_variables=("mixed-stretch",), dtype="float32")
+    runs = []
+    for _ in range(2):
+        st = newton.init_state(mesh, cfg, (), mesh.V0.clone(),
+                               torch.zeros_like(mesh.V0))
+        runs.append(newton.newton_step(mesh, cfg, (), st))
+    assert torch.equal(runs[0].x, runs[1].x)
+    assert torch.equal(runs[0].stats.energy, runs[1].stats.energy)
+    assert runs[0].stats.solver_iters.tolist() == runs[1].stats.solver_iters.tolist()

@@ -480,11 +480,14 @@ def test_stencil_step_goes_through_no_kernel_on_the_cpu(beam):
 
 def test_stencil_step_rejects_uncovered_branch(beam):
     """The JAX step's element-major lattice-CG branch (a stencil plan whose
-    inertia blend differs from 1) is not ported: it raises rather than
-    taking another body."""
+    inertia blend differs from 1) no longer raises: the port takes it as
+    the 'lattice_cg' body (held to the JAX step in
+    tests/test_torch_lattice_cg.py), and no other body."""
     tm, tp = beam["tm"], beam["tplan"]
-    cfg = TConfig(**dict(STEP, inertia_blend_factor=0.5))
+    cfg = TConfig(**dict(STEP, outer_steps=1, inertia_blend_factor=0.5))
+    assert tnewton._select_body(cfg, cfg.solver, None, tp, False,
+                                3) == "lattice_cg"
     x0 = t64(beam["V"])
     st = tnewton.init_state(tm, cfg, (), x0, torch.zeros_like(x0))
-    with pytest.raises(NotImplementedError, match="inertia_blend_factor"):
-        tnewton.newton_step(tm, cfg, (), st, None, (), tp)
+    st = tnewton.newton_step(tm, cfg, (), st, None, (), tp)
+    assert st.stats.iterations == 1 and torch.isfinite(st.x).all()

@@ -88,6 +88,57 @@ def tri_arrays(nx=20, ny=5, seed=None):
     return V, T, kw, x
 
 
+def cloth_arrays(nx=6, ny=6):
+    """Host arrays of tests/test_shell.py:cloth: grid_tri_mesh(nx, ny) over
+    the unit square at z = 0, two corners pinned, gravity along -z, SNH
+    (E=1e5, nu=0.40), density 100, thickness 1e-3 (build_mesh_data's
+    keywords, shell=True among them)."""
+    from mixedfem_tpu_torch.config import enu_to_lame
+    from mixedfem_tpu_torch.mesh import generators
+
+    V2, T = generators.grid_tri_mesh(nx, ny, size=(1.0, 1.0))
+    V = np.concatenate([V2, np.zeros((len(V2), 1))], axis=1)
+    la, mu = enu_to_lame(1e5, 0.40)
+    is_fixed = np.zeros(len(V), bool)
+    is_fixed[np.argmin(V[:, 0] + V[:, 1])] = True
+    is_fixed[np.argmin(-V[:, 0] + V[:, 1])] = True
+    ext = np.zeros_like(V)
+    ext[:, 2] = -9.8
+    kw = dict(density=np.full(len(T), 100.0), mu=np.full(len(T), mu),
+              lam=np.full(len(T), la), model_id=np.zeros(len(T), int),
+              models=("Stable-Neohookean",), is_fixed=is_fixed,
+              ext_force=ext, shell=True, thickness=1e-3)
+    return V, T, kw
+
+
+def rod_arrays(strands=1, n=9, length=1.0, spacing=0.1):
+    """Host arrays of rods: strands of n nodes along +x
+    (tests/test_rod.py:chain_rod for one), their roots on a square grid in
+    the y-z plane `spacing` apart and pinned, gravity along -y; ARAP, E =
+    1e7, nu = 0.40, density 1000, radius 5e-3 (build_rod_mesh_data's
+    keywords)."""
+    from mixedfem_tpu_torch.config import enu_to_lame
+
+    side = int(np.ceil(np.sqrt(strands)))
+    V, E, fixed = [], [], []
+    for s in range(strands):
+        P = np.zeros((n, 3))
+        P[:, 0] = np.linspace(0.0, length, n)
+        P[:, 1] = spacing * (s // side)
+        P[:, 2] = spacing * (s % side)
+        E.append(np.stack([np.arange(n - 1), np.arange(1, n)], axis=1) + s * n)
+        V.append(P)
+        fixed.append(np.arange(n) == 0)
+    V, E = np.concatenate(V), np.concatenate(E)
+    la, mu = enu_to_lame(1e7, 0.40)
+    kw = dict(density=np.full(len(E), 1000.0), mu=np.full(len(E), mu),
+              lam=np.full(len(E), la), model_id=np.zeros(len(E), int),
+              models=("ARAP",), is_fixed=np.concatenate(fixed),
+              ext_force=np.tile(np.array([0.0, -9.8, 0.0]), (len(V), 1)),
+              radius=5e-3)
+    return V, E, kw
+
+
 def to_numpy(obj):
     """A JAX dataclass (or tuple / array / scalar) as nested dicts of numpy
     arrays, the form convert.from_jax_numpy takes."""
