@@ -139,8 +139,8 @@ failure:
    gauss-seidel, and K3 inside the Laplacian preconditioner's rows,
    solvers/laplacian.py:laplacian_rows, for pcg-laplacian and
    eigen-pcg-dualascent); one JSON line {"solvers": ...} of them.
-18. solver-family trajectories, float64, card against CPU, 2 steps (cut
-   from 3 to keep the script inside its time): the
+18. solver-family trajectories, float64, card against CPU, 1 step (cut
+   from 3, then 2, to keep the script inside its time): the
    eight new names on a 1000-tet beam through newton_step, and the drop
    scene through load_scene with eigen-pcg-dualascent,
    minres-indefinite-block, subspace-CG and admm-solver (ADMM capped at
@@ -208,11 +208,43 @@ failure:
    3 float64 steps, card against CPU, of the 6 x 6 cloth, the 9-node rod
    and a 2 x 2 bundle of 8-segment strands (CG to 1e-8): positions to 1e-9
    of scale, Newton and CG counts equal.
-24. one JSON line of phases 21-23's runs, one of kernel results (the 2D
-   instances and widths with launches_by_path for tri_step and
-   tri_contact_step, the shell and rod instances for shell_step and
-   rod_step, for each solver of phase 17, each case of phase 19 and of
-   phase 21), then the device line last.
+24. f64 islands (rhs_precision='float64') on float32 states, each case
+   beside the same run's island-less phase (ms per step and per Newton
+   iteration, CG per Newton, the last and least decrement): (a) phase 4's
+   beam, pcg with its coarse space, one warm-up and three timed steps;
+   (b) phase 8's grid, through the 'lattice_cg' body (K5 and K6 must
+   launch), likewise; (c) pcg-diag on the beam at phase 17's depth, one
+   step; (d) phase 11's contact scene, one warm-up and one timed step, the
+   least mixed distance > 0. The launch counters, set to 0 after the
+   warm-up and read after the timed steps, are split by type: the
+   coefficient update runs through K3 in float64 once a Newton iteration
+   and in float32 only in a coarse refresh (none in (a)-(c), one an
+   attempt in (d)), the rhs through K2 in float64. Then card against CPU:
+   the island pieces (the f64 inertia gradient, coefficients, rhs, local
+   solves, and the merit at alpha = 0 and 0.5) at one float32 state of a
+   1000-tet beam and of the drop scene, to 1e-12 relative; and
+   tests/test_newton.py's small_beam(8, 3, 3) with 12 Newton iterations
+   without and with islands on both devices: the islands' least decrement
+   under 5e-7 and at most 1.05 times the native run's.
+25. warm-started rotations (rotation_warm_start), float32: (a) the 100k-tet
+   beam with its free part squashed to 10% along x (mirrored through the
+   pinned face, every free element inverted), warm and stateless, one
+   warm-up and three timed steps each, printing ms per step, CG per
+   Newton and, after each step, the inverted elements and the least det F
+   (finiteness only); (c) phase 8's grid with warm start, one warm-up and
+   one timed step through the 'lattice_cg' body. (b) the squashed
+   small_beam(6, 3, 3) in float64, 4 steps, card against CPU and against
+   the CPU from x0 moved by one ulp: this trajectory is rounding-chaotic,
+   so positions and R are held to 1e-9 of scale or, where the CPU's own
+   one-ulp parting is larger, to twice that parting, CG counts to 2%
+   (whether the 1e-9 and equal-count criterion held is printed); Newton
+   counts equal, every det F > 0 at the end.
+26. one JSON line of phases 21-23's runs, one of phases 24-25's, one of
+   kernel results (the 2D instances and widths with launches_by_path for
+   tri_step and tri_contact_step, the shell and rod instances for
+   shell_step and rod_step, for each solver of phase 17, each case of
+   phase 19, of phase 21 and of phases 24-25), then the device line
+   last.
 
 --profile DIR additionally traces one more step of each main path with
 torch.profiler, logs the device time of each hand kernel in it, and writes
@@ -737,10 +769,31 @@ def describe(st) -> str:
             f"{[float(f'{e:.9g}') for e in st.stats.energy[:it].tolist()]}")
 
 
+def step_figures(states, times) -> dict:
+    """ms per step and per Newton iteration, CG iterations per Newton, and
+    the last and least decrement of the timed steps `states` (host times
+    `times`, ms)."""
+    its = sum(st.stats.iterations for st in states)
+    cg = sum(sum(st.stats.solver_iters[:st.stats.iterations].tolist())
+             for st in states)
+    decs = [d for st in states
+            for d in st.stats.decrement[:st.stats.iterations].tolist()]
+    pos = [d for d in decs if d > 0]
+    return dict(ms_per_step=sum(times) / len(times),
+                ms_per_newton=sum(times) / its if its else None,
+                cg_per_newton=cg / its if its else None,
+                last_decrement=decs[-1] if decs else None,
+                least_decrement=min(pos) if pos else None,
+                newton_iterations=its)
+
+
 def main_path(mesh, config, state, cs, plan=None, what="100k-tet"):
+    """One warm-up step and three timed ones: (the last state, ms per
+    step, launches over the four steps, step_figures of the timed
+    steps)."""
     from mixedfem_tpu_torch import cuda
 
-    cuda.LAUNCHES.clear()
+    cuda.clear_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     (state,) = run_steps(mesh, config, state, cs, 1, plan)
@@ -770,7 +823,7 @@ def main_path(mesh, config, state, cs, plan=None, what="100k-tet"):
         raise AssertionError(f"the {what} step produced non-finite positions")
     for st in states:
         check_energies(st)
-    return final, step_ms, launches
+    return final, step_ms, launches, step_figures(states, times)
 
 
 def check_energies(st):
@@ -884,7 +937,7 @@ def scene_main_path(sim):
     from mixedfem_tpu_torch import cuda
 
     x0 = sim.state.x.clone()
-    cuda.LAUNCHES.clear()
+    cuda.clear_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     sim.step()
@@ -1073,7 +1126,7 @@ def contact_main_path(sim):
 
     sim._update_contact_candidates = timed_build
     times, states, cands = [], [], []
-    cuda.LAUNCHES.clear()
+    cuda.clear_launches()
     torch.cuda.synchronize()
     for k in range(4):
         t0 = time.perf_counter()
@@ -1114,7 +1167,7 @@ def contact_main_path(sim):
     if not (active > 0 and 0 < dmin < math.inf):
         raise AssertionError(f"no feasible contact: {active} active frames, "
                              f"min mixed distance {dmin}")
-    return step_ms, launches
+    return step_ms, launches, step_figures(timed, times[1:])
 
 
 def contact_trajectory(path, dim=3):
@@ -1291,8 +1344,9 @@ def tri_trajectory():
 # ---------------------------------------------------------------------------
 
 # phase 18's float64 steps, card against CPU, of each name (3 until the
-# script neared its time limit; the CPU's steps take most of the phase)
-PHASE18_STEPS = 2
+# script neared its time limit, then 2 until phases 24-25 were added; the
+# CPU's steps take most of the phase)
+PHASE18_STEPS = 1
 # phase 17's beam solvers, one timed step each of PHASE17_NEWTON Newton
 # iterations (the beam's 5 cut to keep the script inside its time: every
 # one of these paths is host-bound, most at the 500-iteration cap, so a
@@ -1378,11 +1432,13 @@ def solver_report(name, states, times, launches, warm):
         if not torch.isfinite(st.x).all():
             raise AssertionError(f"{name}: non-finite positions")
     per = (lambda v: v / newton_its) if newton_its else (lambda v: None)
+    decs = [d for st in states
+            for d in st.stats.decrement[:st.stats.iterations].tolist() if d > 0]
     out = dict(ms_per_step=sum(times) / len(times),
                ms_per_newton=per(sum(times)),
                solver_iters_per_newton=per(solver_its),
-               last_decrement=dec, timed_steps=len(times),
-               warm_up=warm, launches=counts)
+               last_decrement=dec, least_decrement=min(decs, default=None),
+               timed_steps=len(times), warm_up=warm, launches=counts)
     log(f"  {name}: ms_per_step {out['ms_per_step']:.3f}, ms per Newton "
         f"iteration {out['ms_per_newton']}, solver iterations per Newton "
         f"{out['solver_iters_per_newton']}, last decrement {dec}, launches "
@@ -1411,7 +1467,7 @@ def solver_family_beam(mesh, config, state):
         cfg = dataclasses.replace(
             config, solver=name,
             outer_steps=ADMM_NEWTON if name == "admm" else PHASE17_NEWTON)
-        cuda.LAUNCHES.clear()
+        cuda.clear_launches()
         lap_k3["n"] = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1444,7 +1500,7 @@ def solver_family_contact(path):
         sim = load_scene(path, dim=3, dtype="float32", device="cuda",
                          overrides={"linear_solver": name})
         states, times = [], []
-        cuda.LAUNCHES.clear()
+        cuda.clear_launches()
         lap_k3["n"] = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1602,7 +1658,7 @@ def _timed_steps(step, warm, timed):
     from mixedfem_tpu_torch import cuda
     from mixedfem_tpu_torch.optimizer import newton_direct
 
-    cuda.LAUNCHES.clear()
+    cuda.clear_launches()
     newton_direct.HOST_MS.clear()
     newton_direct.LAST_SYSTEM.clear()
     torch.cuda.synchronize()
@@ -2104,7 +2160,7 @@ def membrane_trajectories():
         out = {}
         for dev in ("cuda", "cpu"):
             mesh, config, state = build(dev)
-            cuda.LAUNCHES.clear()
+            cuda.clear_launches()
             out[dev] = run_steps(mesh, config, state, None, 3)
             launches = dict(cuda.LAUNCHES)
             if dev == "cuda":
@@ -2113,6 +2169,431 @@ def membrane_trajectories():
                       absent=("contract_G_Gw",))
         for k, (g, c) in enumerate(zip(out["cuda"], out["cpu"])):
             _compare(f"{label} step {k}", g, c, KRYLOV_BAND)
+
+
+# ---------------------------------------------------------------------------
+# phases 24 and 25: f64 islands and warm-started rotations
+# ---------------------------------------------------------------------------
+
+def small_beam(nx, ny, nz, dtype, device):
+    """tests/test_newton.py:small_beam on the port: box_tet_mesh(nx, ny, nz)
+    over (2, 0.5, 0.5), x=0 face pinned, gravity; SNH (E=1e6, nu=0.45,
+    rho=1000). (mesh, rest positions)."""
+    from mixedfem_tpu_torch.config import enu_to_lame
+    from mixedfem_tpu_torch.mesh import generators
+    from mixedfem_tpu_torch.mesh import mesh as meshmod
+
+    V, T = generators.box_tet_mesh(nx, ny, nz, size=(2.0, 0.5, 0.5))
+    la, mu = enu_to_lame(1e6, 0.45)
+    mesh = meshmod.build_mesh_data(
+        V, T, density=np.full(len(T), 1000.0), mu=np.full(len(T), mu),
+        lam=np.full(len(T), la), model_id=np.zeros(len(T), int),
+        models=("Stable-Neohookean",), is_fixed=V[:, 0] < 1e-9,
+        ext_force=np.tile(np.array([0.0, -9.8, 0.0]), (len(V), 1)),
+        dtype=dtype, device=device)
+    return mesh, V
+
+
+def squashed(V, free):
+    """tests/test_rotation_warm.py's start: the free part squashed to 10%
+    along x about the pinned face (which mirrors it: every free element
+    inverts)."""
+    V2 = np.asarray(V, np.float64).copy()
+    x_pin = V2[~free, 0].max()
+    V2[:, 0] = np.where(free, x_pin - 0.1 * (V2[:, 0] - x_pin), V2[:, 0])
+    return V2
+
+
+def _fmt(v):
+    return "n/a" if v is None else f"{v:.6g}"
+
+
+def _figures_line(label, fig):
+    return (f"  {label}: ms_per_step {_fmt(fig['ms_per_step'])}, ms per "
+            f"Newton iteration {_fmt(fig['ms_per_newton'])}, CG per Newton "
+            f"{_fmt(fig['cg_per_newton'])}, last decrement "
+            f"{_fmt(fig['last_decrement'])}, least decrement "
+            f"{_fmt(fig['least_decrement'])}")
+
+
+def timed_run(name, step, warm, timed, check=True):
+    """`warm` untimed steps, then _timed_steps' `timed` timed steps (step()
+    returns the state) with the launch counters set to 0 after the
+    warm-up: (states, times, launches, launches by type)."""
+    from mixedfem_tpu_torch import cuda
+
+    for _ in range(warm):
+        t0 = time.perf_counter()
+        st = step()
+        torch.cuda.synchronize()
+        log(f"  {name} warm-up step {(time.perf_counter() - t0) * 1e3:.1f} "
+            f"ms: {describe(st)}")
+    states, times, launches, _, _ = _timed_steps(step, 0, timed)
+    for k, (st, ms) in enumerate(zip(states, times)):
+        log(f"  {name} step {k + 1}: {ms:.3f} ms, {describe(st)}")
+        if not torch.isfinite(st.x).all():
+            raise AssertionError(f"{name}: non-finite positions")
+        if check:
+            check_energies(st)
+    return states, times, launches, dict(cuda.LAUNCHES_BY_TYPE)
+
+
+def island_report(name, states, times, launches, typed, twin, twin_label,
+                  refreshes=0, need=()):
+    """Log an island case beside its island-less twin, and check that the
+    coefficient update ran through K3 in float64 once a Newton iteration
+    and in float32 only in the coarse refreshes (`refreshes`, the JAX
+    step's `_build_precond`)."""
+    fig = step_figures(states, times)
+    log(_figures_line(f"{name} (f64 islands)", fig))
+    log(_figures_line(f"{name} twin without islands ({twin_label})", twin))
+    k64 = typed.get("contract_G_Gw_f64", 0)
+    k32 = typed.get("contract_G_Gw_f32", 0)
+    log(f"  {name}: K3 launches float64 {k64}, float32 {k32} (coarse "
+        f"refreshes {refreshes}), launches by type {typed}")
+    if k64 != fig["newton_iterations"] or k32 != refreshes:
+        raise AssertionError(
+            f"{name}: K3 ran {k64} times in f64 and {k32} in f32 over "
+            f"{fig['newton_iterations']} Newton iterations and {refreshes} "
+            f"coarse refreshes")
+    _need(name, launches, ("contract_G_Gw", "segment_sum_m3") + tuple(need))
+    if not typed.get("segment_sum_m3_f64", 0):
+        raise AssertionError(f"{name}: no f64 K2 launch (the island rhs)")
+    return dict(fig, twin=twin, twin_label=twin_label,
+                launches_by_type=typed, launches_by_kernel=launches)
+
+
+def islands_main_paths(twins, contact_path):
+    """Phase 24: f64 islands at full width on float32 states, each beside
+    the same run's island-less phase: (a) phase 4's beam, pcg with its
+    coarse space, one warm-up and three timed steps; (b) phase 8's grid
+    (body 'lattice_cg': K5 and K6 must launch); (c) pcg-diag on the beam
+    at phase 17's depth, one step; (d) phase 11's contact scene, one
+    warm-up and one timed step, the least mixed distance > 0."""
+    import dataclasses
+
+    from mixedfem_tpu_torch.io.scene import load_scene
+    from mixedfem_tpu_torch.optimizer import newton
+
+    results = {}
+    mesh, config, state, cs = beam(40, 25, 20, torch.float32, "cuda")
+    cfg = dataclasses.replace(config, rhs_precision="float64")
+    states, times, launches, typed = timed_run(
+        "island_beam_step", _stepper(mesh, cfg, state, cs), 1, 3)
+    results["island_beam_step"] = island_report(
+        "island_beam_step", states, times, launches, typed, twins["beam"],
+        "phase 4", need=("element_apply", "segment_sum_m6"))
+    cfg = dataclasses.replace(config, solver="pcg-diag",
+                              outer_steps=PHASE17_NEWTON,
+                              rhs_precision="float64")
+    states, times, launches, typed = timed_run(
+        "island_pcg_diag", _stepper(mesh, cfg, state), 0, 1)
+    results["island_pcg_diag"] = island_report(
+        "island_pcg_diag", states, times, launches, typed, twins["pcg-diag"],
+        "phase 17", need=("element_apply",))
+    del mesh, state, cs
+
+    mesh, config, state, cs, plan = grid_beam(40, 25, 20, torch.float32,
+                                              "cuda")
+    cfg = dataclasses.replace(config, rhs_precision="float64")
+    body = newton._select_body(cfg, cfg.solver, cs, plan, False, 3, hp=True)
+    if body != "lattice_cg":
+        raise AssertionError(f"island grid: body {body}, not lattice_cg")
+    states, times, launches, typed = timed_run(
+        "island_grid_step", _stepper(mesh, cfg, state, cs, plan), 1, 3)
+    results["island_grid_step"] = island_report(
+        "island_grid_step", states, times, launches, typed, twins["grid"],
+        "phase 8", need=("stencil_apply", "stencil_assemble"))
+    results["island_grid_step"]["body"] = body
+    del mesh, state, cs, plan
+
+    sim = load_scene(contact_path, dim=3, dtype="float32", device="cuda",
+                     overrides={"rhs_precision": "float64"})
+    t0 = time.perf_counter()
+    sim.step()
+    torch.cuda.synchronize()
+    log(f"  island_contact_step warm-up step "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms: {describe(sim.state)}")
+    r0 = sim.retries
+    states, times, launches, typed = timed_run("island_contact_step",
+                                               sim.step, 0, 1)
+    st = states[-1]
+    it = st.stats.iterations
+    dmin = st.stats.min_distance[:it].min().item()
+    attempts = 1 + sim.retries - r0
+    log(f"  island_contact_step: candidates {st.contact.nreal}, active "
+        f"frames {st.stats.active_frames[:it].tolist()}, least mixed "
+        f"distance {dmin:.6e}, retries {sim.retries - r0}")
+    if not 0 < dmin < math.inf:
+        raise AssertionError(f"island contact step: least mixed distance {dmin}")
+    results["island_contact_step"] = island_report(
+        "island_contact_step", states, times, launches, typed,
+        twins["contact"], "phase 11",
+        refreshes=attempts if sim.coarse is not None else 0,
+        need=("segment_sum_m9",) + (("banded_sum_m3",)
+                                    if sim.matvec_plan is not None else ()))
+    results["island_contact_step"]["least_mixed_distance"] = dmin
+    return results
+
+
+def _rel(a, b) -> float:
+    scale = b.abs().max().item()
+    return (a.cpu() - b).abs().max().item() / (scale if scale > 0 else 1.0)
+
+
+def island_pieces(mesh, bdf, x, s, dx, R=None, cf=None, contact=None,
+                  dhat=0.0, kappa=0.0, blend=1.0, h2=4e-4):
+    """The f64 islands' pieces of one Newton iteration at a float32 state
+    (newton.island_update, island_local_solve, island_merit at alpha = 0
+    and 0.5), as a dict of float64 tensors."""
+    from mixedfem_tpu_torch.optimizer import newton
+
+    mesh_hp = newton._cast(mesh, torch.float64)
+    bdf_hp = newton._cast(bdf, torch.float64)
+    g, b, c, cc = newton.island_update(
+        mesh_hp, bdf_hp, x, s, 0.02, blend=blend, R_prev=R, cf=cf,
+        contact=contact, dhat=dhat, kappa=kappa)
+    ds, la, dd, cla = newton.island_local_solve(mesh_hp, cf, c, cc, s,
+                                                torch.zeros_like(s), dx)
+    out = dict(inertia=g, rhs=b, G=c.G, Gw=c.Gw, H=c.H, Sv=c.Sv, ds=ds, la=la)
+    cact = None
+    if cc is not None:
+        cact = cc.active.to(x.dtype)
+        out.update(contact_D=cc.D, contact_H=cc.H, dd=dd, contact_la=cla)
+    merit = newton.island_merit(mesh_hp, bdf_hp, h2, x, s, dx, ds, la, cf=cf,
+                                cc=cc, dd=dd, cla=cla, cact=cact, dhat=dhat,
+                                kappa=kappa)
+    out["merit_0"] = merit(0.0).reshape(1)
+    out["merit_0.5"] = merit(0.5).reshape(1)
+    return out
+
+
+def island_pieces_card_vs_cpu(drop_path):
+    """Phase 24, card against CPU: the island pieces at one fixed float32
+    state of a 1000-tet beam (with a warm-start seed) and of the drop scene
+    (with its contact frames), float64, to 1e-12 relative."""
+    from mixedfem_tpu_torch.device import to_device
+    from mixedfem_tpu_torch.integrators import bdf as bdfmod
+    from mixedfem_tpu_torch.io.scene import load_scene
+    from mixedfem_tpu_torch.variables import mixed_stretch as ms
+
+    # the float32 state, made once on the CPU (a state made on each device
+    # would differ in its last bits) and copied to the card
+    mesh, _, _, _ = beam(10, 5, 4, torch.float32, "cpu")
+    g = np.random.default_rng(24)
+    free = mesh.free_mask[:, None]
+
+    def f32(a):
+        return torch.tensor(a, dtype=torch.float32)
+
+    x = mesh.V0 + f32(0.02 * g.standard_normal((mesh.nv, 3))) * free
+    s = ms.reset(mesh, x)[0]
+    state = dict(
+        x=x, s=s + f32(0.01 * g.standard_normal(tuple(s.shape))),
+        v=f32(0.3 * g.standard_normal((mesh.nv, 3))),
+        dx=f32(1e-3 * g.standard_normal((mesh.nv, 3))) * free,
+        R=ms.stretch_of_x(mesh, mesh.V0)[1])
+    out = {}
+    for dev in ("cuda", "cpu"):
+        mesh, _, _, _ = beam(10, 5, 4, torch.float32, dev)
+        t = {k: v.to(dev) for k, v in state.items()}
+        bdf = bdfmod.bdf_init("BDF1", t["x"], t["v"], 0.02)
+        out[dev] = island_pieces(mesh, bdf, t["x"], t["s"], t["dx"], R=t["R"],
+                                 blend=0.5)
+    worst = max(_rel(out["cuda"][k], out["cpu"][k]) for k in out["cpu"])
+    log(f"  island pieces, 1000-tet beam: card against CPU, worst relative "
+        f"difference {worst:.3e} over {sorted(out['cpu'])}")
+    if not worst <= 1e-12:
+        raise AssertionError("the card's island pieces leave the CPU's (beam)")
+
+    card = load_scene(drop_path, dim=3, dtype="float32", device="cuda")
+    card._update_contact_candidates()
+    cpu = to_device(card, "cpu")
+    g = np.random.default_rng(25)
+    ds_host = torch.tensor(0.01 * g.standard_normal(tuple(cpu.state.s.shape)),
+                           dtype=torch.float32)
+    dx_host = torch.tensor(1e-3 * g.standard_normal(tuple(cpu.state.x.shape)),
+                           dtype=torch.float32)
+    out = {}
+    for sim in (card, cpu):
+        st, dev = sim.state, sim.state.x.device
+        zero = st.x.new_zeros((st.contact.nreal,))
+        out[dev.type] = island_pieces(
+            sim.mesh, st.bdf, st.x, st.s + ds_host.to(dev),
+            dx_host.to(dev) * sim.mesh.free_mask[:, None], cf=st.contact,
+            contact=(zero, zero, zero), dhat=sim.config.dhat,
+            kappa=sim.config.kappa, h2=sim.config.h ** 2)
+    active = int(torch.count_nonzero(out["cpu"]["contact_H"]))
+    worst = max(_rel(out["cuda"][k], out["cpu"][k]) for k in out["cpu"])
+    log(f"  island pieces, drop scene ({active} frames inside dhat): card "
+        f"against CPU, worst relative difference {worst:.3e}")
+    if not (active > 0 and worst <= 1e-12):
+        raise AssertionError("the card's island pieces leave the CPU's "
+                             "(drop scene)")
+
+
+def island_floor_card_vs_cpu():
+    """Phase 24: tests/test_newton.py's TestMixedPrecision on both devices:
+    one float32 step of small_beam(8, 3, 3) with 12 Newton iterations and
+    CG to 1e-8, without and with islands; the islands' least decrement is
+    under 5e-7 and at most 1.05 times the native run's."""
+    from mixedfem_tpu_torch.config import SimConfig
+    from mixedfem_tpu_torch.optimizer import newton
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        mesh, V = small_beam(8, 3, 3, torch.float32, dev)
+        for rp in ("native", "float64"):
+            cfg = SimConfig(h=0.02, outer_steps=12, newton_tol=0.0,
+                            itr_tol=1e-8, max_iterative_solver_iters=5000,
+                            mixed_variables=("mixed-stretch",),
+                            dtype="float32", rhs_precision=rp)
+            x0 = torch.tensor(V, dtype=torch.float32, device=dev)
+            st = newton.init_state(mesh, cfg, (), x0, torch.zeros_like(x0))
+            st = newton.newton_step(mesh, cfg, (), st)
+            d = st.stats.decrement[:st.stats.iterations]
+            out[dev, rp] = (d[d > 0].min().item(), st)
+            log(f"  small_beam(8, 3, 3) {dev} {rp}: least decrement "
+                f"{out[dev, rp][0]:.4e}, {describe(st)}")
+    for dev in ("cuda", "cpu"):
+        hp, native = out[dev, "float64"][0], out[dev, "native"][0]
+        if not (hp < 5e-7 and hp <= 1.05 * native):
+            raise AssertionError(f"{dev}: the islands' least decrement {hp} "
+                                 f"(native {native})")
+    dist = (out["cuda", "float64"][1].x.cpu()
+            - out["cpu", "float64"][1].x).abs().max().item()
+    log(f"  island runs, card against CPU: max |x_card - x_cpu| {dist:.3e}")
+    return {dev: {rp: out[dev, rp][0] for rp in ("native", "float64")}
+            for dev in ("cuda", "cpu")}
+
+
+def warm_main_paths(twins):
+    """Phase 25: warm-started rotations at full width, f32: (a) the
+    100k-tet beam with its free part squashed to 10% along x, warm and
+    stateless, one warm-up and three timed steps each (the inverted
+    elements and least det F after each step; finiteness only); (c) phase
+    8's grid, one warm-up and one timed step, body 'lattice_cg'."""
+    import dataclasses
+
+    from mixedfem_tpu_torch.mesh import mesh as meshmod
+    from mixedfem_tpu_torch.optimizer import newton
+
+    results = {}
+    mesh, config, state, cs = beam(40, 25, 20, torch.float32, "cuda")
+    free = (mesh.free_mask > 0).cpu().numpy()
+    x0 = torch.tensor(squashed(mesh.V0.cpu().numpy(), free),
+                      dtype=torch.float32, device="cuda")
+    for warm in (True, False):
+        name = "warm_squashed_beam" if warm else "stateless_squashed_beam"
+        cfg = dataclasses.replace(config, rotation_warm_start=warm)
+        st0 = newton.init_state(mesh, cfg, (), x0, torch.zeros_like(x0))
+        step = _stepper(mesh, cfg, st0, cs)
+        inv = []
+
+        def watched():
+            st = step()
+            det = torch.linalg.det(meshmod.def_grad(mesh, st.x))
+            inv.append((int((det < 0).sum()), det.min().item()))
+            return st
+
+        states, times, launches, typed = timed_run(name, watched, 1, 3,
+                                                   check=False)
+        fig = step_figures(states, times)
+        log(_figures_line(name, fig))
+        log(f"  {name}: inverted elements and least det F after each step "
+            f"(warm-up first) {inv}; launches by type {typed}")
+        if warm and states[-1].R.shape != (mesh.nelem, 3, 3):
+            raise AssertionError("the warm-start rotations were not carried")
+        results[name] = dict(fig, inverted=inv, launches_by_type=typed,
+                             launches_by_kernel=launches)
+    del mesh, state, cs
+
+    mesh, config, state, cs, plan = grid_beam(40, 25, 20, torch.float32,
+                                              "cuda")
+    cfg = dataclasses.replace(config, rotation_warm_start=True)
+    state = dataclasses.replace(
+        newton.init_state(mesh, cfg, (), state.x, torch.zeros_like(state.x)),
+        precond=state.precond)
+    body = newton._select_body(cfg, cfg.solver, cs, plan, False, 3,
+                               warm=True)
+    if body != "lattice_cg":
+        raise AssertionError(f"warm grid: body {body}, not lattice_cg")
+    states, times, launches, typed = timed_run(
+        "warm_grid_step", _stepper(mesh, cfg, state, cs, plan), 1, 1)
+    fig = step_figures(states, times)
+    log(_figures_line("warm_grid_step", fig))
+    log(_figures_line("warm_grid_step twin without warm start (phase 8)",
+                      twins["grid"]))
+    _need("warm_grid_step", launches, ("stencil_apply", "stencil_assemble",
+                                       "contract_G_Gw", "segment_sum_m3"))
+    results["warm_grid_step"] = dict(fig, body=body, twin=twins["grid"],
+                                     launches_by_type=typed,
+                                     launches_by_kernel=launches)
+    return results
+
+
+def warm_trajectory():
+    """Phase 25 (b): tests/test_rotation_warm.py's squashed small_beam(6, 3,
+    3), float64 with warm start (6 Newton iterations, CG to 1e-10), 4
+    steps on the card and on the CPU, and on the CPU again from x0 moved
+    by one ulp: the trajectory is rounding-chaotic (tests/test_torch_warm.py),
+    so the card is held to 1e-9 of scale where the CPU's own one-ulp
+    parting allows it and otherwise to twice that parting, positions and
+    R; Newton counts equal, CG counts within 2%; every det F > 0 at the
+    end."""
+    from mixedfem_tpu_torch.config import SimConfig
+    from mixedfem_tpu_torch.mesh import mesh as meshmod
+    from mixedfem_tpu_torch.optimizer import newton
+
+    cfg = SimConfig(h=0.02, outer_steps=6, newton_tol=0.0, itr_tol=1e-10,
+                    max_iterative_solver_iters=5000,
+                    mixed_variables=("mixed-stretch",), dtype="float64",
+                    rotation_warm_start=True)
+    runs = {}
+    for key, dev, ulp in (("cuda", "cuda", False), ("cpu", "cpu", False),
+                          ("cpu_ulp", "cpu", True)):
+        mesh, V = small_beam(6, 3, 3, torch.float64, dev)
+        free = (mesh.free_mask > 0).cpu().numpy()
+        V2 = squashed(V, free)
+        if ulp:
+            V2[free] = np.nextafter(V2[free], np.inf)
+        x0 = torch.tensor(V2, dtype=torch.float64, device=dev)
+        st = newton.init_state(mesh, cfg, (), x0, torch.zeros_like(x0))
+        states = []
+        for _ in range(4):
+            st = newton.newton_step(mesh, cfg, (), st)
+            states.append(st)
+        runs[key] = (mesh, states)
+    exact = True
+    for k in range(4):
+        g, c, u = (runs[key][1][k] for key in ("cuda", "cpu", "cpu_ulp"))
+        scale = c.x.abs().max().item()
+        dx = (g.x.cpu() - c.x).abs().max().item()
+        dR = (g.R.cpu() - c.R).abs().max().item()
+        ux = (u.x - c.x).abs().max().item()
+        uR = (u.R - c.R).abs().max().item()
+        cg_g = g.stats.solver_iters.tolist()
+        cg_c = c.stats.solver_iters.tolist()
+        log(f"  step {k}: max |x_card - x_cpu| {dx:.3e} (scale {scale:.3f}; "
+            f"CPU one ulp away {ux:.3e}), |R_card - R_cpu| {dR:.3e} ({uR:.3e})"
+            f", CG card {cg_g} cpu {cg_c} cpu one ulp away "
+            f"{u.stats.solver_iters.tolist()}")
+        exact = exact and dx <= 1e-9 * scale and dR <= 1e-9 and cg_g == cg_c
+        if g.stats.iterations != c.stats.iterations:
+            raise AssertionError("Newton counts differ")
+        if not (dx <= max(1e-9 * scale, 2 * ux) and dR <= max(1e-9, 2 * uR)):
+            raise AssertionError("the card's warm trajectory leaves the CPU's")
+        if any(abs(a - b) > max(1, math.ceil(KRYLOV_BAND * b))
+               for a, b in zip(cg_g, cg_c)):
+            raise AssertionError("CG counts differ beyond rounding's band")
+    log(f"  positions and R to 1e-9 of scale with equal CG counts: "
+        f"{'yes' if exact else 'no (within the CPU one-ulp band)'}")
+    for key in ("cuda", "cpu"):
+        mesh, states = runs[key]
+        det = torch.linalg.det(meshmod.def_grad(mesh, states[-1].x))
+        if not det.min().item() > 0:
+            raise AssertionError(f"{key}: inverted elements remain")
+    return exact
 
 
 def profile_step(step, out_dir, name, untraced_ms):
@@ -2280,7 +2761,7 @@ def main() -> int:
     del k2c, cf, pairs
 
     log("phase 4: main path, 100k tets, float32")
-    final, step_ms, launches = main_path(mesh, config, state, cs)
+    final, step_ms, launches, beam_fig = main_path(mesh, config, state, cs)
     missing = [t["name"] for t in timings if launches.get(t["name"], 0) == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
@@ -2310,8 +2791,8 @@ def main() -> int:
 
     log("phase 8: grid path, 100k tets, float32 (stencil plan, grid coarse "
         "space)")
-    gfinal, grid_ms, grid_launches = main_path(gmesh, gconfig, gstate, gcs,
-                                               gplan, "grid")
+    gfinal, grid_ms, grid_launches, grid_fig = main_path(
+        gmesh, gconfig, gstate, gcs, gplan, "grid")
     need = ("stencil_apply", "stencil_assemble", "contract_G_Gw",
             "segment_sum_m3", "segment_sum_m36")
     missing = [k for k in need if grid_launches.get(k, 0) == 0]
@@ -2330,7 +2811,7 @@ def main() -> int:
 
     log("phase 11: contact scene, 92k tets, float32 (load_scene without "
         "mixed_variables, Simulation.step)")
-    contact_ms, contact_launches = contact_main_path(csim)
+    contact_ms, contact_launches, contact_fig = contact_main_path(csim)
     need = ("element_apply", "banded_sum_m3", "banded_sum_m9",
             "segment_sum_m3", "segment_sum_m9", "segment_sum_m6",
             "segment_sum_m36", "contract_G_Gw")
@@ -2381,8 +2862,8 @@ def main() -> int:
     k4_tri_t = time_kernels(k4_tri, torch.float32)
 
     log("phase 14: 2D main path, 100k triangles, float32")
-    tfinal, tri_ms, tri_launches = main_path(tmesh, tconfig, tstate, tcs,
-                                             what="100k-triangle")
+    tfinal, tri_ms, tri_launches, _ = main_path(tmesh, tconfig, tstate, tcs,
+                                                what="100k-triangle")
     need = ("element_apply_k3d2", "segment_sum_m2", "segment_sum_m4",
             "segment_sum_m6", "segment_sum_m36", "contract_G_Gw_n3")
     missing = [k for k in need if tri_launches.get(k, 0) == 0]
@@ -2395,7 +2876,7 @@ def main() -> int:
 
     log("phase 15: 2D contact scene, 101k triangles, float32 (load_scene "
         "with dim=2 without mixed_variables, Simulation.step)")
-    tcontact_ms, tcontact_launches = contact_main_path(tsim)
+    tcontact_ms, tcontact_launches, _ = contact_main_path(tsim)
     need = ("element_apply_k3d2", "banded_sum_m2", "banded_sum_m4",
             "segment_sum_m2", "segment_sum_m4", "segment_sum_m6",
             "segment_sum_m36", "contract_G_Gw_n3")
@@ -2473,7 +2954,32 @@ def main() -> int:
     membrane_trajectories()
     log(f"  phase 23 took {time.perf_counter() - t23:.1f} s")
 
-    log("phase 24: results")
+    log("phase 24: f64 islands (rhs_precision='float64') on float32 states, "
+        "and card against CPU")
+    t24 = time.perf_counter()
+    diag = solver_results["pcg-diag"]
+    twins = {"beam": beam_fig, "grid": grid_fig, "contact": contact_fig,
+             "pcg-diag": dict(
+                 ms_per_step=diag["ms_per_step"],
+                 ms_per_newton=diag["ms_per_newton"],
+                 cg_per_newton=diag["solver_iters_per_newton"],
+                 last_decrement=diag["last_decrement"],
+                 least_decrement=diag["least_decrement"])}
+    with tempfile.TemporaryDirectory() as d:
+        island_results = islands_main_paths(twins, write_contact_scene(d))
+    with tempfile.TemporaryDirectory() as d:
+        island_pieces_card_vs_cpu(write_drop_scene(d))
+    island_floor = island_floor_card_vs_cpu()
+    log(f"  phase 24 took {time.perf_counter() - t24:.1f} s")
+
+    log("phase 25: warm-started rotations (rotation_warm_start), float32, "
+        "and float64 card against CPU")
+    t25 = time.perf_counter()
+    warm_results = warm_main_paths(twins)
+    warm_exact = warm_trajectory()
+    log(f"  phase 25 took {time.perf_counter() - t25:.1f} s")
+
+    log("phase 26: results")
     replaces = {c["name"]: c["replaces"] for c in cases32 + k4_scene
                 + tri32 + k4_tri}
     replaces.update({t["name"]: ("mixedfem_tpu/ops/brick.py:176"
@@ -2501,7 +3007,8 @@ def main() -> int:
                    "shell_step": shell_result["launches_by_kernel"].get(name, 0),
                    "rod_step": rod_result["launches_by_kernel"].get(name, 0)}
         by_path.update({n: r["launches_by_kernel"].get(name, 0)
-                        for n, r in lattice_results.items()})
+                        for n, r in dict(lattice_results, **island_results,
+                                         **warm_results).items()})
         by_path.update({f"solver {n}": r["launches_by_kernel"].get(name, 0)
                         for n, r in solver_results.items()})
         by_path.update({f"host {n}": r["launches_by_kernel"].get(name, 0)
@@ -2584,6 +3091,11 @@ def main() -> int:
         n: {k: v for k, v in r.items() if k != "launches_by_kernel"}
         for n, r in dict(lattice_results, shell_step=shell_result,
                          rod_step=rod_result).items()}}))
+    log(json.dumps({"islands_warm": dict(
+        {n: {k: v for k, v in r.items() if k != "launches_by_kernel"}
+         for n, r in dict(island_results, **warm_results).items()},
+        small_beam_least_decrement=island_floor,
+        warm_trajectory_exact=warm_exact)}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

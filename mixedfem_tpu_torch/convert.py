@@ -79,8 +79,6 @@ def state_from_numpy(d: Mapping, dtype, device) -> SimState:
         return torch.tensor(np.asarray(a), dtype=dtype, device=device)
 
     st, bdf = d["stats"], d["bdf"]
-    if np.asarray(d.get("R", np.zeros((0, 3, 3)))).shape[0]:
-        raise NotImplementedError("rotation_warm_start state")
     cf = d["contact"]
     return SimState(
         x=f(d["x"]),
@@ -114,6 +112,8 @@ def state_from_numpy(d: Mapping, dtype, device) -> SimState:
                                     dtype=dtype, device=device),
         ),
         precond=f(d["precond"]),
+        # the warm-start rotations, (0, 3, 3) when unused
+        R=f(d.get("R", np.zeros((0, 3, 3)))),
     )
 
 

@@ -8,7 +8,7 @@ source is rebuilt) and loaded with ctypes. Nothing here runs at import time.
 Each launcher checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on ``torch.cuda.current_stream()``,
 raises if the launch reports a CUDA error, and adds one to its entry of
-``LAUNCHES``. The launchers take CUDA tensors only: the CPU path is the plain
+``LAUNCHES`` and of ``LAUNCHES_BY_TYPE``. The launchers take CUDA tensors only: the CPU path is the plain
 PyTorch version beside each wrapper (ops/assembly.py, solvers/operator.py,
 ops/smallops.py, ops/banded_scatter.py, ops/stencil.py), chosen there by
 the device of the input.
@@ -41,6 +41,20 @@ NVCC_FLAGS = (
 # names SHAPES gives them); a caller clears it before a run and reads it
 # after, to show the run went through the kernels
 LAUNCHES: collections.Counter = collections.Counter()
+# the same launches split by type, under the same names with "_f32" or
+# "_f64" appended (a step with f64 islands runs K2 and K3 in both types)
+LAUNCHES_BY_TYPE: collections.Counter = collections.Counter()
+
+
+def clear_launches() -> None:
+    """Set every launch count, of both counters, to 0."""
+    LAUNCHES.clear()
+    LAUNCHES_BY_TYPE.clear()
+
+
+def _count(name: str, suffix: str) -> None:
+    LAUNCHES[name] += 1
+    LAUNCHES_BY_TYPE[f"{name}_{suffix}"] += 1
 
 _lib = None
 
@@ -193,7 +207,7 @@ def element_apply(T, Gw, mass, free_mask, p) -> torch.Tensor:
         name, sfx, T.data_ptr(), Gw.data_ptr(), mass.data_ptr(),
         free_mask.data_ptr(), p.data_ptr(), out.data_ptr(), E,
     )
-    LAUNCHES[name] += 1
+    _count(name, sfx)
     return out
 
 
@@ -241,7 +255,7 @@ def segment_sum(row_ptr, slots, rows, nseg: int, piece_ptr=None,
         raise ValueError(f"{rows.shape[0]} rows for {slots.shape[0]} slots")
     out = _gather("segment_sum", row_ptr, slots, rows, nseg, piece_ptr,
                   seg_pieces)
-    LAUNCHES[f"segment_sum_m{rows.shape[1]}"] += 1
+    _count(f"segment_sum_m{rows.shape[1]}", _SUFFIX[rows.dtype])
     return out
 
 
@@ -287,7 +301,7 @@ def _contract_G_Gw(D, dphi, Hs, vols, tile):
         _launch(name, sfx, *args)
     else:
         _launch("contract_G_Gw_tile", sfx, *args, tile)
-    LAUNCHES[name] += 1
+    _count(name, sfx)
     return G, Gw
 
 
@@ -310,7 +324,7 @@ def contract_Gw(Hs, G, vols):
     Gw = torch.empty((E, N, k, d), dtype=dt, device=dev)
     _launch(name, sfx, Hs.data_ptr(), G.data_ptr(), vols.data_ptr(),
             Gw.data_ptr(), E)
-    LAUNCHES[name] += 1
+    _count(name, sfx)
     return Gw
 
 
@@ -324,7 +338,7 @@ def banded_sum(row_ptr, slots, rows, nv: int, piece_ptr=None,
         raise ValueError(f"{rows.shape[0]} rows for {slots.shape[0]} slots")
     out = _gather("banded_sum", row_ptr, slots, rows, nv, piece_ptr,
                   seg_pieces)
-    LAUNCHES[f"banded_sum_m{rows.shape[1]}"] += 1
+    _count(f"banded_sum_m{rows.shape[1]}", _SUFFIX[rows.dtype])
     return out
 
 
@@ -354,7 +368,7 @@ def stencil_apply(W, x, fm, dims, used: int) -> torch.Tensor:
         "stencil_apply", sfx, W.data_ptr(), x.data_ptr(),
         None if fm is None else fm.data_ptr(), y.data_ptr(), NI, NJ, NK, used,
     )
-    LAUNCHES["stencil_apply"] += 1
+    _count("stencil_apply", sfx)
     return y
 
 
@@ -391,5 +405,5 @@ def stencil_assemble(Gw, mass, term_table, plane_ptr, dims, nslots: int,
         term_table.data_ptr(), plane_ptr.data_ptr(), schedule.data_ptr(),
         W.data_ptr(), NI, NJ, NK, nslots, nterms, schedule.shape[0],
     )
-    LAUNCHES["stencil_assemble"] += 1
+    _count("stencil_assemble", sfx)
     return W

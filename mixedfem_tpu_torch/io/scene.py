@@ -9,8 +9,10 @@ objects[{path, offset, transformation, initial_velocity, normalize,
 material_index, material_ids, boundary_condition, external_force,
 skinning_mesh}], material_models[{youngs_modulus, poissons_ratio, density,
 energy}], mixed_variables, variables, initial_state{x_path, v_path},
-enable_ccd, dhat, kappa. Multi-object scenes are concatenated into one
-global mesh. A scene that omits mixed_variables gets mixed-stretch and
+enable_ccd, dhat, kappa; this loader also reads rhs_precision and
+rotation_warm_start (f64 islands and warm-started rotations of the step),
+which the JAX loader leaves at their defaults. Multi-object scenes are
+concatenated into one global mesh. A scene that omits mixed_variables gets mixed-stretch and
 mixed-collision (IPC contact), as in the JAX package.
 
 On the card the loader mirrors the JAX package's accelerator choices:
@@ -267,6 +269,12 @@ def load_scene(
         variables=tuple(args.get("variables", ())),
         show_data=args.get("print_stats", True),
         show_timing=args.get("print_timing", True),
+        # the step's numerics options (read here so that a scene or
+        # `overrides` can set them; the JAX loader leaves them at these
+        # defaults): f64 islands, warm-started rotations (init_state then
+        # seeds SimState.R)
+        rhs_precision=args.get("rhs_precision", "native"),
+        rotation_warm_start=bool(args.get("rotation_warm_start", False)),
         # scenes that omit the key get condensed PCG with the two-level
         # preconditioner, as in the JAX package
         solver=resolve_solver(solver_name) if solver_name is not None else "pcg",

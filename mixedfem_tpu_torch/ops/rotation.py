@@ -1,5 +1,5 @@
 """Batched 3x3 and 2x2 polar decompositions and rotation derivatives
-(port of mixedfem_tpu/ops/rotation.py, without the warm-started polar).
+(port of mixedfem_tpu/ops/rotation.py).
 
 - Symmetric eigendecomposition by cyclic Jacobi with a FIXED sweep count
   (branch-free; the same rotations, in the same order, as the JAX package).
@@ -12,6 +12,9 @@
   guard.
 - 2D: closed-form 2x2 polar decomposition and signed SVD, and ds/dF with
   tr(S) guarded away from 0.
+- Warm-started polar (`polar_warm`): a fixed count of Newton-Procrustes
+  steps on SO(3) from the previous iterate's rotation, which tracks a
+  rotation branch through element inversion.
 """
 
 from __future__ import annotations
@@ -257,6 +260,68 @@ def _sym_inv3(G: torch.Tensor, eps: float) -> torch.Tensor:
         dim=-2,
     )
     return adj / det[..., None, None]
+
+
+def _rodrigues(w: torch.Tensor) -> torch.Tensor:
+    """exp of the cross-product matrix of w (..., 3) -> (..., 3, 3), with
+    the series of sin(t)/t and (1 - cos t)/t^2 near t = 0 (both branches
+    evaluated, as jnp.where does)."""
+    th2 = torch.sum(w * w, dim=-1)
+    th = torch.sqrt(th2 + 1e-30)
+    big = th2 > 1e-24
+    a = torch.where(big, torch.sin(th) / th, 1.0 - th2 / 6.0)
+    b = torch.where(big, (1.0 - torch.cos(th)) / torch.clamp(th2, min=1e-30),
+                    0.5 - th2 / 24.0)
+    z = torch.zeros_like(w[..., 0])
+    K = torch.stack(
+        [
+            torch.stack([z, -w[..., 2], w[..., 1]], dim=-1),
+            torch.stack([w[..., 2], z, -w[..., 0]], dim=-1),
+            torch.stack([-w[..., 1], w[..., 0], z], dim=-1),
+        ],
+        dim=-2,
+    )
+    eye = torch.eye(3, dtype=w.dtype, device=w.device)
+    KK = torch.einsum("...ik,...kj->...ij", K, K)
+    return eye + a[..., None, None] * K + b[..., None, None] * KK
+
+
+def polar_warm(F: torch.Tensor, R0: torch.Tensor, iters: int = 5):
+    """Warm-started Newton-Procrustes polar decomposition of (..., 3, 3):
+    `iters` fixed Newton steps on SO(3) maximizing tr(R^T F) from the seed
+    R0 (the previous iterate's rotation). Each step solves
+
+      (tr(sym M) I - sym M) w = axial(M - M^T),   M = R^T F
+
+    (the inverse guarded at |det| 1e-8), caps |w|^2 at (pi/2)^2, and sets
+    R <- R exp(w^). Returns (R, S = sym(R^T F)); S is indefinite where the
+    branch runs through an inversion. R0 is read contiguous, whatever its
+    strides (an expanded identity), so the card's products keep their
+    bits."""
+    R = R0.contiguous()
+    eye = torch.eye(3, dtype=F.dtype, device=F.device)
+    for _ in range(iters):
+        M = torch.einsum("...ki,...kj->...ij", R, F)
+        Ms = 0.5 * (M + M.transpose(-1, -2))
+        a = torch.stack(
+            [
+                M[..., 2, 1] - M[..., 1, 2],
+                M[..., 0, 2] - M[..., 2, 0],
+                M[..., 1, 0] - M[..., 0, 1],
+            ],
+            dim=-1,
+        )
+        tr = Ms.diagonal(dim1=-2, dim2=-1).sum(-1)
+        Hinv = _sym_inv3(tr[..., None, None] * eye - Ms, 1e-8)
+        w = torch.einsum("...ij,...j->...i", Hinv, a)
+        # the bounded step keeps the fixed-count iteration stable far from
+        # the optimum: |w|^2 <= (pi/2)^2
+        wn2 = torch.sum(w * w, dim=-1, keepdim=True)
+        w = w * torch.sqrt(torch.clamp(2.4674011 / torch.clamp(wn2, min=1e-30),
+                                       max=1.0))
+        R = torch.einsum("...ik,...kj->...ij", R, _rodrigues(w))
+    S = torch.einsum("...ki,...kj->...ij", R, F)
+    return R, 0.5 * (S + S.transpose(-1, -2))
 
 
 def dsdF33(R: torch.Tensor, S: torch.Tensor) -> torch.Tensor:

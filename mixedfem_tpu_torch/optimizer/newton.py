@@ -59,11 +59,21 @@ fixed lengths and read nothing. Each stage runs under a profiler span
 (`newton.coarse_refresh`, `newton.update`, `newton.pcg` around every
 linear solve, `newton.line_search`, and `newton.contact` around the
 contact work inside them: the frame updates, the contact merit terms and
-ACCD), which costs nothing unless torch.profiler is on. Paths the JAX step
-has and this port does not cover yet (f64 islands, warm-started rotations)
-raise NotImplementedError. The host solvers 'direct', 'pcg-ic' and 'amgcl'
-are optimizer/newton_direct.py's; this step refuses them with the JAX
-step's ValueError.
+ACCD), which costs nothing unless torch.profiler is on. The host solvers
+'direct', 'pcg-ic' and 'amgcl' are optimizer/newton_direct.py's; this step
+refuses them with the JAX step's ValueError.
+
+With `config.rhs_precision == 'float64'` on a float32 state (f64
+islands), the cancellation-limited pieces run in float64 on f64 copies of
+the mesh and the BDF state: the inertia gradient, the one coefficient
+update of each Newton iteration (its float32 cast is what the CG uses),
+the rhs, the mixed-contact update and rhs, the local solves and the merit,
+whose acceptance is then strict. The assemblies of an island step sum over
+the mesh's incidence plan (K2) whatever plan is given, as the JAX step
+turns its banded assembly off there; the CG, its blocks and its
+preconditioner stay in float32. With `config.rotation_warm_start` the
+polar decomposition of each 3D update is seeded with the previous Newton
+iterate's rotations (SimState.R, carried from step to step).
 
 With the vanilla stretch variable (variables/stretch.py) the condensed
 paths add its gradient, diagonal blocks and Hessian rows (summed with the
@@ -147,6 +157,10 @@ class SimState:
     # drawn by the first step that needs it (laplacian.default_power_start)
     # unless given, and carried from step to step
     power_v0: Optional[torch.Tensor] = None
+    # per-element rotations (E, 3, 3), the polar seed of the next update,
+    # when config.rotation_warm_start; (0, 3, 3) otherwise
+    R: torch.Tensor = dataclasses.field(
+        default_factory=lambda: torch.zeros((0, 3, 3)))
 
 
 def empty_stats(outer: int, dtype, device) -> StepStats:
@@ -178,6 +192,10 @@ def init_state(
     press_states: Tuple[pressmod.PressState, ...] = (),
 ) -> SimState:
     s0, la0 = ms.reset(mesh, x0)
+    R0 = x0.new_zeros((0, 3, 3))
+    if (config.rotation_warm_start and mesh.dim == 3
+            and "mixed-stretch" in config.mixed_variables):
+        _, R0 = ms.stretch_of_x(mesh, x0)
     return SimState(
         x=x0,
         s=s0,
@@ -189,6 +207,7 @@ def init_state(
         step_count=0,
         stats=empty_stats(config.outer_steps, x0.dtype, x0.device),
         precond=torch.zeros((0, 0), dtype=x0.dtype, device=x0.device),
+        R=R0,
     )
 
 
@@ -196,7 +215,10 @@ def _total_energy(mesh, bdf, h2, x, s, la, Sv=None, use_mixed=True,
                   use_vanilla=False):
     """Line-search merit: inertia + h^2 psi(s) + la . c(x, s) with the
     mixed variable, + h^2 psi(F(x)) with the vanilla one. `Sv` skips the
-    polar decomposition when S(x) at this x is already known."""
+    polar decomposition when S(x) at this x is already known. With
+    warm-started rotations the update's Sv is the warm branch's, and a
+    trial point's (Sv None) the stateless polar's; the two differ on
+    inverted elements, as in the JAX step."""
     E = disp.energy(mesh, bdf, x)
     if use_mixed:
         E = E + h2 * ms.energy(mesh, s) + ms.constraint_value(
@@ -237,6 +259,87 @@ _NODAL = ("collision", "friction")
 FULL_SYSTEM = ("minres-kkt", "minres-kkt-admm", "dual-cg", "admm")
 # the host paths (optimizer/newton_direct.py)
 HOST_SOLVERS = ("direct", "pcg-ic", "amgcl")
+# the paths with f64 islands (config.rhs_precision = 'float64')
+ISLAND_SOLVERS = ("pcg", "pcg-block-jacobi", "pcg-diag", "pcg-laplacian",
+                  "pcg-dualascent")
+
+
+def _cast(obj, dtype):
+    """A copy of the dataclass `obj` with every floating tensor field cast
+    to `dtype`; index tables, plans and other fields are shared."""
+    return dataclasses.replace(obj, **{
+        f.name: v.to(dtype) for f in dataclasses.fields(obj)
+        if torch.is_tensor(v := getattr(obj, f.name)) and v.is_floating_point()
+    })
+
+
+def island_update(mesh_hp, bdf_hp, x, s, dt, *, blend: float = 1.0,
+                  use_mixed: bool = True, R_prev=None, cf=None, contact=None,
+                  dhat: float = 0.0, kappa: float = 0.0,
+                  ee_mollifier: bool = False):
+    """The f64 islands' update at a float32 iterate (x, s), in float64 on
+    the f64 copies mesh_hp and bdf_hp (the JAX step's :667-745): the
+    inertia gradient, the coefficient update (warm-started from R_prev when
+    given) and, with the frames `cf` and their mixed contact state
+    `contact` = (d, la, active), the mixed-contact update. Returns
+    (inertia gradient, rhs b = -inertia + stretch rhs + contact rhs,
+    stretch coefficients, contact coefficients), all float64; the sums run
+    over the mesh's and the frames' incidence plans (K2)."""
+    x64 = x.double()
+    g = disp.gradient(mesh_hp, bdf_hp, x64, blend=blend)
+    b = -g
+    coeffs = cc = None
+    if use_mixed:
+        s64 = s.double()
+        coeffs = ms.update(mesh_hp, x64, s64, dt,
+                           R_prev=None if R_prev is None else R_prev.double())
+        b = b + ms.rhs(mesh_hp, coeffs, s64)
+    if cf is not None:
+        with record_function("newton.contact"):
+            d, la, act = (t.double() for t in contact)
+            cc = mc.update(mesh_hp, cf, x64, d, la, act, dhat, kappa,
+                           ee_mollifier=ee_mollifier)
+            b = b + mc.rhs(mesh_hp, cf, cc)
+    return g, b, coeffs, cc
+
+
+def island_local_solve(mesh_hp, cf, coeffs, cc, s, la, dx):
+    """The f64 islands' local solves from the float32 dx: (ds, la) of the
+    stretch (zero and `la` without `coeffs`) and, with `cc`, (dd, la) of
+    the mixed contact, all float64."""
+    dx64 = dx.double()
+    if coeffs is not None:
+        ds, la = ms.local_solve(mesh_hp, coeffs, s.double(), dx64)
+    else:
+        ds, la = torch.zeros_like(s, dtype=torch.float64), la.double()
+    dd = cla = None
+    if cc is not None:
+        dd, cla = mc.local_solve(mesh_hp, cf, cc, dx64)
+    return ds, la, dd, cla
+
+
+def island_merit(mesh_hp, bdf_hp, h2, x, s, dx, ds, la, *,
+                 use_mixed: bool = True, use_vanilla: bool = False, cf=None,
+                 cc=None, dd=None, cla=None, cact=None, dhat: float = 0.0,
+                 kappa: float = 0.0, ee_mollifier: bool = False):
+    """The f64 islands' merit: a function of alpha giving, in float64, the
+    merit at x + alpha dx, s + alpha ds with the multipliers la (the
+    stateless polar at every alpha, 0 included), plus with `cc` the mixed
+    contact terms at the mixed distances cc.d + alpha dd with the
+    multipliers cla over the active mask cact (the JAX step's merit64)."""
+    x64, s64, dx64 = x.double(), s.double(), dx.double()
+
+    def merit(a):
+        e = _total_energy(mesh_hp, bdf_hp, h2, x64 + a * dx64, s64 + a * ds,
+                          la, use_mixed=use_mixed, use_vanilla=use_vanilla)
+        if cc is not None:
+            with record_function("newton.contact"):
+                e = e + mixed_contact_merit(
+                    cf, x64 + a * dx64, cc.d + a * dd, cact, cla, dhat,
+                    kappa, mesh=mesh_hp, ee_mollifier=ee_mollifier)
+        return e
+
+    return merit
 
 
 def check_supported(config: SimConfig) -> str:
@@ -253,10 +356,7 @@ def check_supported(config: SimConfig) -> str:
     if config.coarse_inverse_method not in ("newton-schulz", "lu"):
         raise ValueError(config.coarse_inverse_method)
     if solver in HOST_SOLVERS:
-        # the JAX host loop reads neither option
         return solver
-    if config.rotation_warm_start:
-        raise NotImplementedError("rotation_warm_start")
     if "mixed-stretch" not in config.mixed_variables and (
             solver in FULL_SYSTEM
             or solver in ("pcg-laplacian", "pcg-dualascent")):
@@ -265,11 +365,12 @@ def check_supported(config: SimConfig) -> str:
 
 
 def check_state(solver: str, config: SimConfig, have_frames: bool,
-                gs_plan) -> None:
+                gs_plan, hp: bool = False) -> None:
     """The JAX step's refusals that depend on the state or the arguments:
     nodal Hessians (collision, friction; they act only where the state has
-    frames) on the ADMM and dual-Schur paths, and Gauss-Seidel without its
-    coloring."""
+    frames) on the ADMM and dual-Schur paths and with f64 islands (`hp`),
+    Gauss-Seidel without its coloring, and f64 islands on a path other than
+    the condensed pcg family."""
     nodal = have_frames and any(v in config.variables for v in _NODAL)
     vanilla = "stretch" in config.variables
     if solver in ("admm", "minres-kkt-admm") and (nodal or vanilla):
@@ -285,11 +386,22 @@ def check_state(solver: str, config: SimConfig, have_frames: bool,
             "dual-cg eliminates dx via the lumped mass; nodal-Hessian "
             "variables (stretch/collision/friction) need 'pcg' or "
             "'minres-kkt'")
+    if hp:
+        if nodal:
+            raise NotImplementedError(
+                "rhs_precision='float64' covers the mixed variables "
+                "(stretch + mixed contact); nodal collision/friction "
+                "variables run f32 — use dtype='float64' for those")
+        if solver not in ISLAND_SOLVERS:
+            raise NotImplementedError(
+                "rhs_precision='float64' is implemented for the condensed "
+                "pcg paths (use dtype='float64' for the full-KKT paths)")
 
 
 def _select_body(config: SimConfig, solver: str, coarse, matvec_plan,
                  contact: bool, dim: int, *, shell: bool = False,
-                 rod: bool = False, hp: bool = False) -> str:
+                 rod: bool = False, hp: bool = False,
+                 warm: Optional[bool] = None) -> str:
     """'grid', 'lattice_cg', 'stencil' or 'generic', as the JAX step selects
     its Newton body and linear solve (mixedfem_tpu/optimizer/newton.py:
     387-405 `use_stencil_rows`, :773-783 `use_stencil`, :858-863
@@ -297,8 +409,9 @@ def _select_body(config: SimConfig, solver: str, coarse, matvec_plan,
     contact and no coarse space or a grid one runs on the lattice: the row
     body ('grid') where the JAX step allows it, else the generic body with
     the lattice-resident CG ('lattice_cg': an inertia blend other than 1,
-    f64 islands (`hp`), warm-started rotations, a recorded vanilla
-    gradient, rods). Any other solver, contact or a geometric coarse space
+    f64 islands (`hp`), warm-started rotations (`warm`, the step's warm_R;
+    None reads config.rotation_warm_start), a recorded vanilla gradient,
+    rods). Any other solver, contact or a geometric coarse space
     takes the generic body with the stencil matvec ('stencil'). A shell
     ignores every plan, as in the JAX step ('generic'). Raises for a
     stencil plan of a 2D mesh, which the JAX package's build_stencil_plan
@@ -317,7 +430,9 @@ def _select_body(config: SimConfig, solver: str, coarse, matvec_plan,
     if (contact or solver not in ("pcg", "pcg-block-jacobi")
             or (coarse is not None and coarse.grid is None)):
         return "stencil"
-    rows = (not rod and not hp and not config.rotation_warm_start
+    if warm is None:
+        warm = config.rotation_warm_start
+    rows = (not rod and not hp and not warm
             and not config.record_vanilla_gradient
             and config.inertia_blend_factor == 1.0)
     return "grid" if rows else "lattice_cg"
@@ -325,8 +440,9 @@ def _select_body(config: SimConfig, solver: str, coarse, matvec_plan,
 
 def _line_search(E, eps_E: float, ls_iters: int, merit, alpha0: float = 1.0):
     """Backtracking from alpha0: accept when merit(alpha) < E + eps_E |E|
-    (the rounding band); (alpha, accepted)."""
-    E_thresh = E + eps_E * E.abs()
+    (the rounding band; eps_E = 0 is the strict rule merit(alpha) < E);
+    (alpha, accepted)."""
+    E_thresh = E + eps_E * E.abs() if eps_E else E
     alpha, ls_k = alpha0, 0
     while ls_k < ls_iters and bool(merit(alpha) >= E_thresh):
         alpha *= 0.5
@@ -366,14 +482,19 @@ def newton_step(
             "newton_step runs only the on-device paths")
     cf = state.contact
     have_frames = cf.frames.shape[0] > 0
-    check_state(solver, config, have_frames, gs_plan)
-    if config.rhs_precision == "float64" and state.x.dtype != torch.float64:
-        raise NotImplementedError("rhs_precision='float64' islands")
+    dtype, dev = state.x.dtype, state.x.device
+    # f64 islands for the cancellation-limited pieces
+    hp = config.rhs_precision == "float64" and dtype != torch.float64
+    check_state(solver, config, have_frames, gs_plan, hp)
     dt = bdfmod.bdf_dt(state.bdf)
     h2 = dt * dt
-    dtype, dev = state.x.dtype, state.x.device
     outer = config.outer_steps
     bdf = state.bdf
+    if hp:
+        # taken before the press forces are added, as in the JAX step
+        # (mixedfem_tpu/optimizer/newton.py:292-301): the islands' inertia
+        # terms leave a press controller's force out
+        mesh_hp, bdf_hp = _cast(mesh, torch.float64), _cast(bdf, torch.float64)
 
     # dynamic external forces (MechanicalPress controllers)
     if press_specs:
@@ -420,8 +541,11 @@ def newton_step(
 
     if solver != "pcg":
         coarse = None
+    warm_R = (config.rotation_warm_start and use_mixed and mesh.dim == 3
+              and state.R.shape[0] == mesh.nelem)
     body_kind = _select_body(config, solver, coarse, matvec_plan, any_contact,
-                             mesh.dim, shell=mesh.shell, rod=mesh.rod)
+                             mesh.dim, shell=mesh.shell, rod=mesh.rod, hp=hp,
+                             warm=warm_R)
     if mesh.shell:
         # the JAX step keeps shells off every plan: the assemblies sum over
         # the mesh's incidence plan and the matvec is element_matvec
@@ -491,35 +615,54 @@ def newton_step(
         return meshmod.project_free(mesh, assemble(disp.gradient_contrib(
             mesh, bdf, x, blend=config.inertia_blend_factor)))
 
-    def generic_body(x, s, la, cd, cla, cact):
+    def generic_body(x, s, la, contact, Rcur):
+        cd, cla, cact = contact
         inertia_grad = None
+        R_prev = Rcur if warm_R else None
         with record_function("newton.update"):
-            coeffs = ms.update(mesh, x, s, dt) if use_mixed else None
+            if hp:
+                # the islands: one f64 coefficient update, whose f32 cast
+                # the CG uses, and the rhs in f64
+                inertia_grad, b, coeffs_hp, cc_hp = island_update(
+                    mesh_hp, bdf_hp, x, s, dt,
+                    blend=config.inertia_blend_factor, use_mixed=use_mixed,
+                    R_prev=R_prev, cf=cf if use_contact else None,
+                    contact=contact, dhat=dhat, kappa=kappa,
+                    ee_mollifier=config.ee_mollifier)
+                inertia_grad, b = inertia_grad.to(dtype), b.to(dtype)
+                coeffs = None if coeffs_hp is None else _cast(coeffs_hp, dtype)
+                if use_contact:
+                    cc = _cast(cc_hp, dtype)
+            else:
+                coeffs = (ms.update(mesh, x, s, dt, R_prev=R_prev)
+                          if use_mixed else None)
             vcc = vstretch.update(mesh, x, dt) if use_vanilla else None
             if condensed:
                 # --- assemble: inertia gradient, rhs, block-Jacobi blocks
-                inertia_grad = inertia_gradient(x)
-                b = -inertia_grad
-                if use_mixed:
-                    b = b + meshmod.project_free(
-                        mesh, assemble(ms.rhs_contrib(mesh, coeffs, s)))
+                if not hp:
+                    inertia_grad = inertia_gradient(x)
+                    b = -inertia_grad
+                    if use_mixed:
+                        b = b + meshmod.project_free(
+                            mesh, assemble(ms.rhs_contrib(mesh, coeffs, s)))
                 if body_kind in ("stencil", "lattice_cg"):
-                    # the offset-form blocks (K6); their o=0 plane is the
-                    # exact block-Jacobi diagonal
+                    # the offset-form blocks (K6); without islands their
+                    # o=0 plane is the exact block-Jacobi diagonal
                     W = stmod.assemble_W(matvec_plan, coeffs.Gw,
                                          mesh.mass_coeff)
+                if body_kind in ("stencil", "lattice_cg") and not hp:
                     blocks = stmod.diag_blocks(matvec_plan, W)
                 else:
                     blocks = mesh.mass_diag[:, None, None] * eye
                     if use_mixed:
-                        blocks = blocks + assemble(
-                            ms.diag_blocks_contrib(mesh, coeffs))
-                if use_vanilla:
-                    b = b - vstretch.gradient(mesh, vcc, matvec_plan)
-                    blocks = blocks + vstretch.diag_blocks(mesh, vcc,
-                                                           matvec_plan)
+                        blocks = blocks + (
+                            ms.diag_blocks(mesh, coeffs) if hp else assemble(
+                                ms.diag_blocks_contrib(mesh, coeffs)))
+            if condensed and use_vanilla:
+                b = b - vstretch.gradient(mesh, vcc, matvec_plan)
+                blocks = blocks + vstretch.diag_blocks(mesh, vcc, matvec_plan)
             with record_function("newton.contact"):
-                if use_contact:
+                if use_contact and not hp:
                     cc = mc.update(mesh, cf, x, cd, cla, cact, dhat, kappa,
                                    ee_mollifier=config.ee_mollifier)
                 if use_vcollision:
@@ -528,7 +671,8 @@ def newton_step(
                     fcc = fric.update(ffr, x, config.contact_mu, epsv_h)
                 if condensed:
                     if use_contact:
-                        b = b + mc.rhs(mesh, cf, cc)
+                        if not hp:
+                            b = b + mc.rhs(mesh, cf, cc)
                         blocks = blocks + mc.diag_blocks(mesh, cf, cc)
                     if use_vcollision:
                         b = b - vcol.gradient(mesh, cf, vccol)
@@ -563,12 +707,20 @@ def newton_step(
                     W if body_kind in ("stencil", "lattice_cg") else None)
             with record_function("newton.line_search"):
                 # --- local recovery of (ds, la) and of the contact (dd, la)
-                if use_mixed:
-                    ds, la_new = ms.local_solve(mesh, coeffs, s, dx)
+                if hp:
+                    ds64, la64, cdd64, cla64 = island_local_solve(
+                        mesh_hp, cf, coeffs_hp, cc_hp if use_contact else None,
+                        s, la, dx)
+                    ds, la_new = ds64.to(dtype), la64.to(dtype)
+                    if use_contact:
+                        cdd, cla = cdd64.to(dtype), cla64.to(dtype)
                 else:
-                    ds, la_new = torch.zeros_like(s), la
-                if use_contact:
-                    cdd, cla = mc.local_solve(mesh, cf, cc, dx)
+                    if use_mixed:
+                        ds, la_new = ms.local_solve(mesh, coeffs, s, dx)
+                    else:
+                        ds, la_new = torch.zeros_like(s), la
+                    if use_contact:
+                        cdd, cla = mc.local_solve(mesh, cf, cc, dx)
         else:
             with record_function("newton.pcg"):
                 sol, cg_iters, cg_err = full_system_solve(
@@ -592,12 +744,32 @@ def newton_step(
                 dec_t = torch.maximum(dec_t, cdd.abs().amax())
             else:
                 cdd = torch.zeros_like(cd)
-            # --- merit at the base point (reuses S(x) from the update)
-            E = _total_energy(mesh, bdf, h2, x, s, la_new,
-                              Sv=coeffs.Sv if use_mixed else None,
-                              use_mixed=use_mixed, use_vanilla=use_vanilla)
-            if any_contact:
-                E = E + contact_energy(x, cd, cact, cla)
+            if hp:
+                merit = island_merit(
+                    mesh_hp, bdf_hp, h2, x, s, dx, ds64, la64,
+                    use_mixed=use_mixed, use_vanilla=use_vanilla, cf=cf,
+                    cc=cc_hp if use_contact else None, dd=cdd64, cla=cla64,
+                    cact=cact, dhat=dhat, kappa=kappa,
+                    ee_mollifier=config.ee_mollifier)
+                # --- merit at the base point (the stateless polar)
+                E64 = merit(0.0)
+                E = E64.to(dtype)
+            else:
+                # --- merit at the base point (reuses S(x) from the update)
+                E = _total_energy(mesh, bdf, h2, x, s, la_new,
+                                  Sv=coeffs.Sv if use_mixed else None,
+                                  use_mixed=use_mixed, use_vanilla=use_vanilla)
+                if any_contact:
+                    E = E + contact_energy(x, cd, cact, cla)
+
+                def merit(a):
+                    e = _total_energy(mesh, bdf, h2, x + a * dx, s + a * ds,
+                                      la_new, use_mixed=use_mixed,
+                                      use_vanilla=use_vanilla)
+                    if any_contact:
+                        e = e + contact_energy(x + a * dx, cd + a * cdd, cact,
+                                               cla)
+                    return e
             # --- the vanilla gradient norm at the iterate
             vg = None
             if record_vg:
@@ -613,20 +785,19 @@ def newton_step(
                     alpha0 = float(0.9 * accdmod.accd_alpha(
                         cf.frames, cf.ftype, cf.fmask, x, dx))
 
-            def merit(a):
-                e = _total_energy(mesh, bdf, h2, x + a * dx, s + a * ds,
-                                  la_new, use_mixed=use_mixed,
-                                  use_vanilla=use_vanilla)
-                if any_contact:
-                    e = e + contact_energy(x + a * dx, cd + a * cdd, cact, cla)
-                return e
-
-            alpha, accept = _line_search(E, eps_E, config.ls_iters, merit,
-                                         alpha0)
+            if hp:
+                # f64 merit: strict acceptance, merit(alpha) < E64
+                alpha, accept = _line_search(E64, 0.0, config.ls_iters, merit,
+                                             alpha0)
+            else:
+                alpha, accept = _line_search(E, eps_E, config.ls_iters, merit,
+                                             alpha0)
             x = x + (accept * alpha) * dx
             s = s + (accept * alpha) * ds
             cd = cd + (accept * alpha) * cdd
-        return (x, s, la_new, (cd, cla, cact),
+        if warm_R:
+            Rcur = coeffs.R
+        return (x, s, la_new, (cd, cla, cact), Rcur,
                 (E, dec_t, alpha, cg_iters, cg_err, vg))
 
     def condensed_solve(x, b, blocks, coeffs, vcc, cc, contact_matvec, W):
@@ -765,7 +936,7 @@ def newton_step(
                           max_iters=config.max_iterative_solver_iters,
                           tol=config.itr_tol)
 
-    def grid_body(x, s, la, *contact):
+    def grid_body(x, s, la, contact, Rcur):
         """The JAX step's lattice (row) body, element-major: lattice CG on
         (3, npad) vectors with the stencil matvec (K5), W assembled by K6,
         block-Jacobi from its o=0 plane, and the alpha-parametrized merit
@@ -812,7 +983,8 @@ def newton_step(
             alpha, accept = _line_search(E, eps_E, config.ls_iters, merit)
             x = x + (accept * alpha) * dx
             s = s + (accept * alpha) * ds
-        return x, s, la_new, contact, (E, dec_t, alpha, cg_iters, cg_err, None)
+        return (x, s, la_new, contact, Rcur,
+                (E, dec_t, alpha, cg_iters, cg_err, None))
 
     body = grid_body if body_kind == "grid" else generic_body
     stats = empty_stats(outer, dtype, dev)
@@ -823,9 +995,10 @@ def newton_step(
     it = 0
     E_prev = torch.zeros((), dtype=dtype, device=dev)
     dec = res = float("inf")
+    Rcur = state.R
     while it < outer and dec > config.newton_tol and res > 1e-12:
-        x, s, la, contact, (E, dec_t, alpha, cg_iters, cg_err, vg) = body(
-            x, s, la, *contact)
+        x, s, la, contact, Rcur, (E, dec_t, alpha, cg_iters, cg_err,
+                                  vg) = body(x, s, la, contact, Rcur)
         res_t = torch.abs((E - E_prev) / (E + 1e-6))
         stats.energy[it] = E
         stats.energy_res[it] = res_t
@@ -868,4 +1041,5 @@ def newton_step(
         stats=stats,
         precond=precond_out,
         power_v0=power_v0,
+        R=Rcur,
     )

@@ -316,4 +316,7 @@ def newton_step_direct(
         stats=stats,
         precond=state.precond,
         power_v0=state.power_v0,
+        # the JAX host loop leaves the warm-start rotations behind (its
+        # SimState takes the default R)
+        R=x.new_zeros((0, 3, 3)),
     )

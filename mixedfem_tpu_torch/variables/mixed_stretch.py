@@ -71,14 +71,20 @@ def coeffs_from_FG(F, G, R, Sv, s, vols, mu, lam, model_id, models, dt):
     )
 
 
-def update(mesh: meshmod.MeshData, x: torch.Tensor, s: torch.Tensor, dt):
+def update(mesh: meshmod.MeshData, x: torch.Tensor, s: torch.Tensor, dt,
+           R_prev: torch.Tensor | None = None):
     """Rotations and derivatives at (x, s). For solids G and Gw come from
     one fused per-element pass (smallops.contract_G_Gw, kernel K3 on the
     card). For shells and rods G = D : dF/dx, the Jacobian of their F
     (mesh.shell_def_grad_jacobian, rod.rod_def_grad_jacobian), and Gw comes
-    from coeffs_from_FG (K7)."""
+    from coeffs_from_FG (K7). R_prev (E, 3, 3) seeds the warm-started
+    polar (rotation.polar_warm) in 3D, shells and rods included, whose F is
+    3x3; without it, or in 2D, the polar is the stateless one."""
     F = meshmod.def_grad(mesh, x)
-    R, S = rotation.polar(F, mesh.dim)
+    if R_prev is not None and mesh.dim == 3:
+        R, S = rotation.polar_warm(F, R_prev)
+    else:
+        R, S = rotation.polar(F, mesh.dim)
     Sv = sym.pack(S)
     D = rotation.dsdF(R, S, mesh.dim)                      # (E, N, d, d)
     if mesh.shell or mesh.rod:
@@ -104,9 +110,22 @@ def rhs_contrib(mesh: meshmod.MeshData, c: StretchCoeffs, s: torch.Tensor):
     return -torch.einsum("eikr,ei,e->ekr", c.G, y, mesh.vols)
 
 
+def rhs(mesh: meshmod.MeshData, c: StretchCoeffs, s: torch.Tensor):
+    """Condensed-system right-hand side (nv, d), summed per vertex over the
+    mesh's incidence plan (K2 on the card), zero at pinned vertices."""
+    return meshmod.project_free(
+        mesh, assembly.segment_sum(mesh.plan, rhs_contrib(mesh, c, s)))
+
+
 def diag_blocks_contrib(mesh: meshmod.MeshData, c: StretchCoeffs):
     """Per-corner (d, d) diagonal-block contributions (E, k, d, d)."""
     return torch.einsum("eikr,eiks->ekrs", c.Gw, c.Gw)
+
+
+def diag_blocks(mesh: meshmod.MeshData, c: StretchCoeffs):
+    """Per-vertex (d, d) diagonal blocks of the stretch stiffness, summed
+    over the mesh's incidence plan (K2 on the card)."""
+    return assembly.segment_sum(mesh.plan, diag_blocks_contrib(mesh, c))
 
 
 def local_solve(

@@ -17,7 +17,10 @@ alone with the direct solve) step on the card as on the CPU. K7 is held
 to its plain version at the shell and rod shapes and K1's shell and rod
 instances to theirs, off K7's tile and from misaligned buffers; the
 Laplacian rows go through K3; shell and rod steps match the CPU's in
-float64, and two float32 shell steps repeat bit for bit. This file
+float64, and two float32 shell steps repeat bit for bit. The warm-started
+polar matches the CPU's in float64; an f64-island iteration's pieces match
+the CPU's, and a float32 island step with warm-started rotations repeats
+bit for bit with K3 in float64 only. This file
 imports neither JAX nor the JAX package, so it also runs
 where only PyTorch is installed:
 
@@ -34,6 +37,7 @@ import torch
 
 from mixedfem_tpu_torch import cuda
 from mixedfem_tpu_torch.config import SimConfig
+from mixedfem_tpu_torch.integrators import bdf as tbdf
 from mixedfem_tpu_torch.io import mesh_io
 from mixedfem_tpu_torch.io.scene import load_scene
 from mixedfem_tpu_torch.mesh import generators
@@ -1013,5 +1017,108 @@ def test_float32_shell_step_repeats_on_card(card):
                                torch.zeros_like(mesh.V0))
         runs.append(newton.newton_step(mesh, cfg, (), st))
     assert torch.equal(runs[0].x, runs[1].x)
+    assert torch.equal(runs[0].stats.energy, runs[1].stats.energy)
+    assert runs[0].stats.solver_iters.tolist() == runs[1].stats.solver_iters.tolist()
+
+
+def test_polar_warm_on_card_matches_cpu(card):
+    """rotation.polar_warm in float64 on the card against the CPU to 1e-12,
+    from a seed off the optimum and from a broadcast identity."""
+    rng = np.random.default_rng(0)
+    F = rng.standard_normal((4096, 3, 3)) * 0.3 + np.eye(3)
+    w = rng.standard_normal((4096, 3)) * 0.3
+    for seed in ("rotated", "identity"):
+        out = {}
+        for dev in (card, torch.device("cpu")):
+            Ft = torch.tensor(F, device=dev)
+            if seed == "identity":
+                R0 = torch.eye(3, dtype=torch.float64, device=dev).expand(
+                    4096, 3, 3)
+            else:
+                R0 = rotation.polar33(Ft)[0] @ rotation._rodrigues(
+                    torch.tensor(w, device=dev))
+            out[dev.type] = [a.cpu() for a in rotation.polar_warm(Ft, R0)]
+        for g, c in zip(out["cuda"], out["cpu"]):
+            assert (g - c).abs().max().item() <= 1e-12
+
+
+def _island_inputs(device):
+    """The 360-tet beam at a float32 state with a velocity, a stretch off
+    S(x), a warm-start seed and a displacement (made on the CPU, then
+    copied to `device`, so that both devices start from the same bits):
+    newton.island_update's, island_local_solve's and island_merit's
+    inputs."""
+    V, T, kw, x = beam_arrays(seed=0)
+    cpu = torch.device("cpu")
+    mesh = tmesh.build_mesh_data(V, T, dtype=torch.float32, device=cpu, **kw)
+    rng = np.random.default_rng(4)
+    f32 = dict(dtype=torch.float32)
+    xt = torch.tensor(x, **f32)
+    s = tms.reset(mesh, xt)[0]
+    s = s + torch.tensor(0.01 * rng.standard_normal(tuple(s.shape)), **f32)
+    v = torch.tensor(0.3 * rng.standard_normal(V.shape), **f32)
+    dx = torch.tensor(1e-3 * rng.standard_normal(V.shape)
+                      * (~kw["is_fixed"])[:, None], **f32)
+    R = tms.stretch_of_x(mesh, mesh.V0)[1]
+    mesh = tmesh.build_mesh_data(V, T, dtype=torch.float32, device=device,
+                                 **kw)
+    xt, s, v, dx, R = (a.to(device) for a in (xt, s, v, dx, R))
+    return mesh, tbdf.bdf_init("BDF1", xt, v, DT), xt, s, dx, R
+
+
+def test_island_pieces_on_card_match_cpu(card):
+    """One island iteration's float64 pieces (the inertia gradient, the
+    coefficient update through K3's f64 instance, the rhs through K2's,
+    the local solve, the merit at alpha = 0 and 0.5) on the card against
+    the CPU at the same float32 state, to 1e-12 of scale; K3 launches in
+    float64 only."""
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        mesh, bdf, x, s, dx, R = _island_inputs(dev)
+        mesh_hp = newton._cast(mesh, torch.float64)
+        bdf_hp = newton._cast(bdf, torch.float64)
+        cuda.clear_launches()
+        g, b, c, _ = newton.island_update(mesh_hp, bdf_hp, x, s, DT,
+                                          blend=0.5, R_prev=R)
+        ds, la, _, _ = newton.island_local_solve(mesh_hp, None, c, None, s,
+                                                 torch.zeros_like(s), dx)
+        merit = newton.island_merit(mesh_hp, bdf_hp, DT * DT, x, s, dx, ds,
+                                    la)
+        typed = dict(cuda.LAUNCHES_BY_TYPE)
+        pieces = [g, b, c.G, c.Gw, c.H, c.g, c.Sv, c.R, ds, la, merit(0.0),
+                  merit(0.5)]
+        out[dev.type] = ([p.cpu() for p in pieces], typed)
+    (gp, typed), (cp, none) = out["cuda"], out["cpu"]
+    assert not none
+    assert typed.get("contract_G_Gw_f64", 0) == 1
+    assert typed.get("segment_sum_m3_f64", 0) >= 2
+    assert not any(k.endswith("_f32") for k in typed), typed
+    for a, e in zip(gp, cp):
+        assert a.dtype == torch.float64
+        scale = max(e.abs().max().item(), 1e-300)
+        assert (a - e).abs().max().item() <= 1e-12 * scale
+
+
+def test_float32_island_step_repeats_on_card(card):
+    """One float32 step of a 1200-tet beam with f64 islands and
+    warm-started rotations, twice from the same state: the runs agree bit
+    for bit, and the coefficient update ran in float64 only."""
+    V, T, kw, _ = beam_arrays(10, 5, 4)
+    mesh = tmesh.build_mesh_data(V, T, dtype=torch.float32, device=card,
+                                 **kw)
+    cfg = SimConfig(h=DT, outer_steps=5, newton_tol=0.0, itr_tol=1e-4,
+                    mixed_variables=("mixed-stretch",), dtype="float32",
+                    rhs_precision="float64", rotation_warm_start=True)
+    runs = []
+    for _ in range(2):
+        st = newton.init_state(mesh, cfg, (), mesh.V0.clone(),
+                               torch.zeros_like(mesh.V0))
+        cuda.clear_launches()
+        runs.append(newton.newton_step(mesh, cfg, (), st))
+        typed = dict(cuda.LAUNCHES_BY_TYPE)
+        assert typed.get("contract_G_Gw_f64", 0) == runs[-1].stats.iterations
+        assert typed.get("contract_G_Gw_f32", 0) == 0
+    assert torch.equal(runs[0].x, runs[1].x)
+    assert torch.equal(runs[0].R, runs[1].R)
     assert torch.equal(runs[0].stats.energy, runs[1].stats.energy)
     assert runs[0].stats.solver_iters.tolist() == runs[1].stats.solver_iters.tolist()

@@ -168,6 +168,9 @@ def check_trajectory(grid, case):
                                       jst_["solver_iters"])
         close(ts.stats.alpha, jst_["alpha"], rtol=0, atol=0)
         close(ts.stats.energy, jst_["energy"], rtol=1e-10)
+        # the warm-start rotations, where the case carries them
+        assert ts.R.shape == js["R"].shape
+        close(ts.R, js["R"], rtol=0, atol=1e-8)
         if tcfg.record_vanilla_gradient:
             # to 1e-8 of the largest: the last norm is a small difference
             # of the inertia and elastic gradients

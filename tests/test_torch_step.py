@@ -331,17 +331,18 @@ def test_trajectory_stats(trajectory):
 
 def test_step_rejects_uncovered_paths(beam):
     """newton_step refuses a host solver with the JAX step's ValueError
-    (Simulation.step routes those to newton_direct), and what the port does
-    not cover with NotImplementedError: rotation_warm_start, and the
-    float64 rhs islands of a float32 state."""
+    (Simulation.step routes those to newton_direct), and the float64 rhs
+    islands of a float32 state where the JAX step refuses them (a
+    full-system solver) with NotImplementedError; rotation_warm_start and
+    the islands of the condensed pcg family run."""
     tm = beam["tm"]
     x0 = t64(beam["V"])
     st = tnewton.init_state(tm, TConfig(**STEP), (), x0, torch.zeros_like(x0))
     with pytest.raises(ValueError):
         tnewton.newton_step(tm, TConfig(**STEP, solver="direct"), (), st)
-    with pytest.raises(NotImplementedError):
-        tnewton.newton_step(tm, TConfig(**STEP, rotation_warm_start=True),
-                            (), st)
+    warm = TConfig(**STEP, rotation_warm_start=True)
+    stw = tnewton.init_state(tm, warm, (), x0, torch.zeros_like(x0))
+    assert torch.isfinite(tnewton.newton_step(tm, warm, (), stw).R).all()
     tm32 = tmesh.build_mesh_data(beam["V"], beam["T"], dtype=torch.float32,
                                  device="cpu", **beam["kw"])
     x32 = x0.float()
@@ -349,6 +350,10 @@ def test_step_rejects_uncovered_paths(beam):
                               x32, torch.zeros_like(x32))
     with pytest.raises(NotImplementedError):
         tnewton.newton_step(
-            tm32, TConfig(**STEP, dtype="float32", rhs_precision="float64"),
-            (), st32)
+            tm32, TConfig(**STEP, dtype="float32", rhs_precision="float64",
+                          solver="minres-kkt"), (), st32)
+    out = tnewton.newton_step(
+        tm32, TConfig(**STEP, dtype="float32", rhs_precision="float64"), (),
+        st32)
+    assert out.x.dtype == torch.float32 and torch.isfinite(out.x).all()
     assert st.x.device == CPU
