@@ -239,11 +239,29 @@ failure:
    one-ulp parting is larger, to twice that parting, CG counts to 2%
    (whether the 1e-9 and equal-count criterion held is printed); Newton
    counts equal, every det F > 0 at the end.
-26. one JSON line of phases 21-23's runs, one of phases 24-25's, one of
-   kernel results (the 2D instances and widths with launches_by_path for
-   tri_step and tri_contact_step, the shell and rod instances for
-   shell_step and rod_step, for each solver of phase 17, each case of
-   phase 19, of phase 21 and of phases 24-25), then the device line
+26-28. the sharded steps (mixedfem_tpu_torch/parallel/), float32, on
+   SHARD_RANKS = 4 ranks on the one card in one process group over gloo
+   staged through pinned host buffers (NCCL refuses two ranks on one
+   device, so the card shows no scaling), one warm-up and two timed steps
+   each: 26 the vertex-partitioned 100k-tet beam (RCM order, two-level
+   coarse space), run twice from the same start, whose positions must
+   repeat bit for bit; 27 the I-slab sharded stencil step on phase 8's
+   100k-tet grid (41 I-planes over 4 slabs); 28 the element-sharded
+   100k-tet beam (phase 4's configuration without a banded plan). Each
+   prints ms per step and per Newton iteration, CG per Newton, the host
+   ms inside collectives and the bytes sent per step (the maximum over
+   ranks), and each rank's launches by name: K1, K2 and K3 (26), K3,
+   K5, K6 and K2 (27), K1, K2 and K3 (28) must launch on every rank.
+29. float64 at the CPU tests' sizes: the paths of 26-28 and the
+   vertex-partitioned step with contact on the drop mesh, 2 ranks on the
+   card against 2 gloo ranks on the CPU started beside them, 2 steps: to
+   1e-9 of scale, Newton counts equal, CG within 2% (contact 10%); each
+   card run also against the single-rank card step of the same size.
+30. one JSON line of phases 21-23's runs, one of phases 24-25's, one of
+   phases 26-28's, one of kernel results (the 2D instances and widths
+   with launches_by_path for tri_step and tri_contact_step, the shell and
+   rod instances for shell_step and rod_step, the sharded paths, for each solver of phase 17, each case of phase 19, of
+   phase 21, of phases 24-25 and of phases 26-28), then the device line
    last.
 
 --profile DIR additionally traces one more step of each main path with
@@ -2596,6 +2614,334 @@ def warm_trajectory():
     return exact
 
 
+# ---------------------------------------------------------------------------
+# phases 26-29: several ranks on the card (mixedfem_tpu_torch/parallel/)
+# ---------------------------------------------------------------------------
+
+# ranks of phases 26-28, all on the one card over gloo staged through the
+# host (NCCL refuses two ranks on one device)
+SHARD_RANKS = 4
+
+
+def _host_beam(nx, ny, nz, reorder=False):
+    """The bench's beam on the CPU, float32, for the ranks to take: (mesh,
+    config, rest positions, geometric coarse space of target 48), its
+    vertices in RCM order with `reorder`."""
+    from mixedfem_tpu_torch.mesh import generators
+    from mixedfem_tpu_torch.parallel import reorder as rcm
+    from mixedfem_tpu_torch.solvers import coarse as coarsemod
+    from mixedfem_tpu_torch.solvers.operator import sort_elements_banded
+
+    V, T = generators.box_tet_mesh(nx, ny, nz, size=(4.0, 1.0, 1.0))
+    if reorder:
+        V, T = rcm.reorder_mesh_arrays(V, T)[:2]
+    T = T[sort_elements_banded(T)]
+    mesh, config, _ = _sim(V, T, torch.float32, "cpu")
+    cs = coarsemod.build_coarse_space(V, T, V[:, 0] < 1e-9, target_size=48,
+                                      dtype=torch.float32, device="cpu")
+    return mesh, config, V, cs
+
+
+def rank_figures(label, runs, need):
+    """Print and check phases 26-28's readings of one path from its ranks'
+    timed steps (`runs[r]` the list of rank r's steps): ms per step and
+    per Newton iteration (the slowest rank's), CG per Newton, host ms in
+    collectives and bytes sent per step (the maximum over ranks), and each
+    rank's launches by name; every kernel of `need` must have launched on
+    every rank. Returns the figures."""
+    steps = len(runs[0])
+    ms = [max(r[k]["ms"] for r in runs) for k in range(steps)]
+    its = sum(s["iterations"] for s in runs[0])
+    cg = sum(s["cg"] if "cg" in s else int(sum(s["solver_iters"]))
+             for s in runs[0])
+    comm_ms = max(sum(s["comm_ms"] for s in r) / steps for r in runs)
+    comm_bytes = max(sum(s["comm_bytes"] for s in r) / steps for r in runs)
+    launches = []
+    for r in runs:
+        tot = {}
+        for s in r:
+            for k, v in s["launches"].items():
+                tot[k] = tot.get(k, 0) + v
+        launches.append(tot)
+    fig = dict(ranks=len(runs), transport=runs[0][0]["transport"],
+               ms_per_step=sum(ms) / steps,
+               ms_per_newton=sum(ms) / its, cg_per_newton=cg / its,
+               newton_iterations=its, comm_ms_per_step=comm_ms,
+               comm_bytes_per_step=comm_bytes, launches_by_rank=launches)
+    log(f"  {label}: ms_per_step {fig['ms_per_step']:.3f}, ms per Newton "
+        f"{fig['ms_per_newton']:.3f}, CG per Newton {fig['cg_per_newton']:.2f}"
+        f" ({its} Newton iterations in {steps} timed steps), host ms in "
+        f"collectives per step {comm_ms:.3f}, bytes sent per step "
+        f"{comm_bytes:.0f} (max over ranks)")
+    for r, tot in enumerate(launches):
+        log(f"    rank {r} launches {dict(sorted(tot.items()))}")
+        missing = [k for k in need if tot.get(k, 0) == 0]
+        if missing:
+            raise AssertionError(f"{label}: rank {r} launched no {missing}")
+    for r in runs:
+        for s in r:
+            if not np.isfinite(s["x"]).all():
+                raise AssertionError(f"{label}: non-finite positions")
+    return fig
+
+
+def sharded_main_paths():
+    """Phases 26-28 in one process group of SHARD_RANKS ranks on the card:
+    the vertex-partitioned 100k-tet beam (RCM order, two-level), the
+    sharded stencil step on the 100k-tet grid, the element-sharded
+    100k-tet beam; one warm-up and two timed steps each (the vp run made
+    twice). Returns (figures by path, launches by path summed over ranks)."""
+    from mixedfem_tpu_torch import convert
+    from mixedfem_tpu_torch.parallel import launch, ranks
+    from mixedfem_tpu_torch.parallel import vp_step as vp
+
+    D = SHARD_RANKS
+    t0 = time.perf_counter()
+    mesh, config, V, cs = _host_beam(40, 25, 20, reorder=True)
+    plan = vp.build_vp_plan(mesh, D, coarse=cs)
+    log(f"  vp beam: E {mesh.nelem} nv {mesh.nv}, RCM bandwidth "
+        f"{int((mesh.T.max(1).values - mesh.T.min(1).values).max())}, "
+        f"{D} ranks: nb {plan.nb} Bd {plan.Bd} Ep {plan.T_local.shape[1]}, "
+        f"aggregates {cs.naggr}")
+    xp = vp.pad_vertex_field(plan, V.astype(np.float32))
+    vp_call = (ranks.vp_steps, (plan, config, xp, np.zeros_like(xp), 2),
+               dict(warmup=1, repeat=True))
+    gmesh, gconfig, _gs, gcs, gplan = grid_beam(40, 25, 20, torch.float32,
+                                                "cpu")
+    GV = gmesh.V0.numpy()
+    log(f"  grid: lattice {(gplan.NI, gplan.NJ, gplan.NK)} over {D} I-slabs "
+        f"of {-(-gplan.NI // D)} planes, aggregates {gcs.naggr}")
+    st_call = (ranks.stencil_steps, (
+        convert.mesh_to_numpy(gmesh), convert.stencil_plan_to_numpy(gplan),
+        convert.coarse_to_numpy(gcs), gconfig, GV, np.zeros_like(GV), 2),
+        dict(warmup=1))
+    bmesh, bconfig, BV, bcs = _host_beam(40, 25, 20)
+    es_call = (ranks.element_sharded_steps, (
+        convert.mesh_to_numpy(bmesh), convert.coarse_to_numpy(bcs), bconfig,
+        BV, np.zeros_like(BV), 2), dict(warmup=1))
+    log(f"  host set-up {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out = launch.run_ranks(ranks.sequence, D, devices=["cuda:0"] * D,
+                           args=([vp_call, st_call, es_call],), timeout=60,
+                           deadline=900)
+    log(f"  {D} ranks on {torch.cuda.get_device_name(0)}, transport "
+        f"{out[0][0][0]['transport']} (NCCL refuses two ranks on one "
+        f"device): the three paths took {time.perf_counter() - t0:.1f} s")
+    figs, launches = {}, {}
+    for i, (name, phase, need) in enumerate((
+            ("vp_step", 26, ("element_apply", "segment_sum_m3",
+                             "contract_G_Gw")),
+            ("stencil_shard_step", 27, ("contract_G_Gw", "stencil_apply",
+                                        "stencil_assemble", "segment_sum_m3")),
+            ("element_sharded_step", 28, ("element_apply", "segment_sum_m3",
+                                          "contract_G_Gw")))):
+        runs = [o[i] for o in out]
+        log(f"phase {phase}: {name}, {D} ranks on one card, float32")
+        figs[name] = rank_figures(name, runs, need)
+        if name == "stencil_shard_step":
+            # the slab's static data, built once before the steps
+            figs[name]["slab_setup_ms"] = max(r[0]["slab_ms"] for r in runs)
+            log(f"  rank_slab (once, before the steps): "
+                f"{figs[name]['slab_setup_ms']:.1f} ms (max over ranks)")
+        tot = {}
+        for r in figs[name]["launches_by_rank"]:
+            for k, v in r.items():
+                tot[k] = tot.get(k, 0) + v
+        launches[name] = tot
+    same = [s["repeat_equal"] for o in out for s in o[0]]
+    log(f"  vp_step repeated from the same start: positions bit for bit "
+        f"equal on every rank: {all(same)}")
+    if not all(same):
+        raise AssertionError("the float32 vp step does not repeat bit for bit")
+    figs["vp_step"]["repeat_bit_equal"] = True
+    # the same positions on every rank (they are psum'd / gathered)
+    for name, i in (("stencil_shard_step", 1), ("element_sharded_step", 2)):
+        if not all(np.array_equal(o[i][-1]["x"], out[0][i][-1]["x"])
+                   for o in out):
+            raise AssertionError(f"{name}: ranks disagree on the positions")
+    return figs, launches
+
+
+def _small_cases(device):
+    """Phase 29's cases at the CPU tests' sizes, float64 host arrays:
+    {name: (target, args, kwargs)} for ranks.sequence, and the single-rank
+    steps of each on `device` for the same size."""
+    import dataclasses
+
+    from mixedfem_tpu_torch import convert
+    from mixedfem_tpu_torch.config import SimConfig, enu_to_lame
+    from mixedfem_tpu_torch.mesh import generators
+    from mixedfem_tpu_torch.mesh import mesh as meshmod
+    from mixedfem_tpu_torch.ops import stencil as stmod
+    from mixedfem_tpu_torch.optimizer import newton
+    from mixedfem_tpu_torch.parallel import ranks
+    from mixedfem_tpu_torch.parallel import vp_step as vp
+    from mixedfem_tpu_torch.solvers import coarse as coarsemod
+    from mixedfem_tpu_torch.variables import mixed_collision as mc
+
+    la, mu = enu_to_lame(1e6, 0.45)
+
+    def build(V, T, fixed, ext, E=(la, mu)):
+        return meshmod.build_mesh_data(
+            V, T, density=np.full(len(T), 1000.0), mu=np.full(len(T), E[1]),
+            lam=np.full(len(T), E[0]), model_id=np.zeros(len(T), int),
+            models=("Stable-Neohookean",), is_fixed=fixed,
+            ext_force=np.tile(ext, (len(V), 1)), device="cpu")
+
+    cases, singles = {}, {}
+    # the vertex-partitioned step with the two-level coarse space
+    V, T = generators.box_tet_mesh(32, 2, 2, size=(2.0, 0.5, 0.5))
+    m = build(V, T, V[:, 0] < 1e-9, [0.0, -9.8, 0.0])
+    cfg = SimConfig(h=0.02, outer_steps=3, itr_tol=1e-11,
+                    max_iterative_solver_iters=5000,
+                    mixed_variables=("mixed-stretch",), dtype="float64")
+    cs = coarsemod.build_coarse_space(V, T, V[:, 0] < 1e-9, target_size=24,
+                                      dtype=torch.float64, device="cpu")
+    plan = vp.build_vp_plan(m, 2, coarse=cs)
+    xp = vp.pad_vertex_field(plan, V)
+    cases["vp_step"] = (ranks.vp_steps, (plan, cfg, xp, np.zeros_like(xp), 2),
+                        {})
+    singles["vp_step"] = (m, cfg, V, np.zeros_like(V), None, None, None)
+    # mixed contact on the drop mesh (tests/test_vp_contact.py)
+    Vb, Tb = generators.box_tet_mesh(24, 2, 2, size=(2.4, 0.2, 0.2))
+    Vx, Tx = generators.box_tet_mesh(1, 1, 1, size=(0.12, 0.12, 0.12))
+    Vd = np.concatenate([Vb, Vx + np.array([1.14, 0.04, 0.225])])
+    Td = np.concatenate([Tb, Tx + len(Vb)])
+    fixed = (Vd[:, 0] < 1e-9) | (np.abs(Vd[:, 0] - 2.4) < 1e-9)
+    md = build(Vd, Td, fixed, [0.0, 0.0, -9.8], enu_to_lame(1e5, 0.45))
+    cfgd = SimConfig(h=0.01, outer_steps=4, itr_tol=1e-11,
+                     max_iterative_solver_iters=20000,
+                     mixed_variables=("mixed-stretch", "mixed-collision"),
+                     dtype="float64", dhat=0.05, kappa=100.0)
+    vd = np.zeros_like(Vd)
+    vd[len(Vb):, 2] = -1.0
+    pland = vp.build_vp_plan(md, 2)
+    contact = dict(F_srf=md.F_srf.numpy(), E_srf=md.E_srf.numpy(),
+                   margin=0.05, nv=md.nv)
+    cases["vp_contact"] = (ranks.vp_steps, (
+        pland, cfgd, vp.pad_vertex_field(pland, Vd),
+        vp.pad_vertex_field(pland, vd), 2), dict(contact=contact))
+    singles["vp_contact"] = (md, cfgd, Vd, vd, None, None, contact)
+    # the sharded stencil step, grid coarse space (9 x 4 x 3)
+    Vg, Tg = generators.box_tet_mesh(9, 4, 3, size=(2.0, 1.0, 0.7))
+    gplan, perm = stmod.build_stencil_plan(Tg, len(Vg), (10, 5, 4),
+                                           device="cpu")
+    Tg = Tg[perm]
+    mg = build(Vg, Tg, Vg[:, 0] < 1e-9, [0.0, -9.8, 0.0])
+    cfgg = SimConfig(h=0.01, outer_steps=4, newton_tol=1e-12,
+                     max_iterative_solver_iters=300, itr_tol=1e-10,
+                     mixed_variables=("mixed-stretch",), dtype="float64",
+                     coarse_inverse_method="lu")
+    gcs = coarsemod.build_coarse_space_grid(
+        Vg, Tg, Vg[:, 0] < 1e-9, (10, 5, 4), block=2, dtype=torch.float64,
+        device="cpu")
+    cases["stencil_shard_step"] = (ranks.stencil_steps, (
+        convert.mesh_to_numpy(mg), convert.stencil_plan_to_numpy(gplan),
+        convert.coarse_to_numpy(gcs), cfgg, Vg, np.zeros_like(Vg), 2), {})
+    singles["stencil_shard_step"] = (mg, cfgg, Vg, np.zeros_like(Vg), gcs,
+                                     gplan, None)
+    # the element-sharded step with the geometric coarse space
+    Ve, Te = generators.box_tet_mesh(4, 2, 2, size=(2.0, 0.5, 0.5))
+    me = build(Ve, Te, Ve[:, 0] < 1e-9, [0.0, -9.8, 0.0])
+    cfge = SimConfig(h=0.01, outer_steps=4, itr_tol=1e-10, dtype="float64",
+                     mixed_variables=("mixed-stretch",))
+    ecs = coarsemod.build_coarse_space(Ve, Te, Ve[:, 0] < 1e-9, target_size=8,
+                                       dtype=torch.float64, device="cpu")
+    cases["element_sharded_step"] = (ranks.element_sharded_steps, (
+        convert.mesh_to_numpy(me), convert.coarse_to_numpy(ecs), cfge, Ve,
+        np.zeros_like(Ve), 2), {})
+    singles["element_sharded_step"] = (me, cfge, Ve, np.zeros_like(Ve), ecs,
+                                       None, None)
+
+    def single(name):
+        """2 single-rank newton_step calls of case `name` on `device`."""
+        m, cfg, V0, v0, cs0, plan0, contact0 = singles[name]
+        m = convert.mesh_from_numpy(convert.mesh_to_numpy(m), torch.float64,
+                                    device)
+        cs0 = None if cs0 is None else convert.coarse_from_numpy(
+            convert.coarse_to_numpy(cs0), torch.float64, device)
+        plan0 = None if plan0 is None else convert.stencil_plan_from_numpy(
+            convert.stencil_plan_to_numpy(plan0), device)
+        if name == "vp_step":
+            # the vertex-partitioned step is held to the block-Jacobi step
+            # (tests/test_sharding.py)
+            cs0 = None
+        st = newton.init_state(m, cfg, (), torch.tensor(V0, device=device),
+                               torch.tensor(v0, device=device))
+        out = []
+        for _ in range(2):
+            if contact0 is not None:
+                f, t, k = ranks.candidates(st.x.cpu().numpy(), contact0)
+                st = dataclasses.replace(st, contact=mc.contact_frames(
+                    f, t, k, m.nv, torch.float64, device))
+            st = newton.newton_step(m, cfg, (), st, cs0, (), plan0)
+            out.append(st.x.cpu().numpy())
+        return out
+
+    return cases, single
+
+
+def sharded_card_vs_cpu():
+    """Phase 29: each sharded path of phases 26-28 and the vertex-
+    partitioned step with contact, float64, at the CPU tests' sizes: 2
+    ranks on the card against 2 gloo ranks on the CPU (started together),
+    2 steps, to 1e-9 of scale with Newton counts equal and CG within 2%
+    (contact 10%); each card run also against the single-rank card step
+    of the same size (1e-8 of scale after one step, 1e-7 after two; with
+    contact 1e-6, tests/test_vp_contact.py's)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mixedfem_tpu_torch.parallel import launch, ranks
+
+    cases, single = _small_cases("cuda")
+    names = list(cases)
+    calls = [cases[n] for n in names]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        card = pool.submit(launch.run_ranks, ranks.sequence, 2,
+                           devices=["cuda:0"] * 2, args=(calls,), timeout=60,
+                           deadline=600)
+        cpu = pool.submit(launch.run_ranks, ranks.sequence, 2, args=(calls,),
+                          timeout=60, deadline=600)
+        card, cpu = card.result(), cpu.result()
+    log(f"  2 card ranks and 2 CPU ranks took {time.perf_counter() - t0:.1f} s")
+
+    def full_x(runs, k, name):
+        """Step k's positions: the ranks' rows of a vp run end to end."""
+        if name.startswith("vp"):
+            return np.concatenate([r[k]["x"] for r in runs])
+        return runs[0][k]["x"]
+
+    for i, name in enumerate(names):
+        band = 0.10 if name == "vp_contact" else 0.02
+        g_runs, c_runs = [o[i] for o in card], [o[i] for o in cpu]
+        ref = single(name)
+        nv = ref[0].shape[0]
+        for k in range(2):
+            xg, xc = full_x(g_runs, k, name)[:nv], full_x(c_runs, k, name)[:nv]
+            scale = np.abs(xc).max()
+            err = np.abs(xg - xc).max()
+            err1 = np.abs(xg - ref[k]).max()
+            cg_g = g_runs[0][k].get("cg", None)
+            if cg_g is None:
+                cg_g = int(sum(g_runs[0][k]["solver_iters"][:-1]))
+                cg_c = int(sum(c_runs[0][k]["solver_iters"][:-1]))
+            else:
+                cg_c = c_runs[0][k]["cg"]
+            it_g, it_c = g_runs[0][k]["iterations"], c_runs[0][k]["iterations"]
+            log(f"  {name} step {k}: max |x_card - x_cpu| {err:.3e} (scale "
+                f"{scale:.3f}), against the single-rank card step {err1:.3e}; "
+                f"Newton card {it_g} cpu {it_c}, CG card {cg_g} cpu {cg_c}")
+            if not err <= 1e-9 * scale:
+                raise AssertionError(f"{name}: the card's ranks leave the CPU's")
+            if it_g != it_c or abs(cg_g - cg_c) > band * max(cg_c, 1):
+                raise AssertionError(f"{name}: Newton or CG counts differ")
+            tol1 = 1e-6 if name == "vp_contact" else (1e-8, 1e-7)[k]
+            if not err1 <= tol1 * scale:
+                raise AssertionError(f"{name}: the sharded card run leaves "
+                                     "the single-rank card step")
+
+
 def profile_step(step, out_dir, name, untraced_ms):
     """Trace one more step (`step()` runs it) with torch.profiler: device
     busy time against the step's wall time, host and device time per span,
@@ -2979,7 +3325,19 @@ def main() -> int:
     warm_exact = warm_trajectory()
     log(f"  phase 25 took {time.perf_counter() - t25:.1f} s")
 
-    log("phase 26: results")
+    log(f"phases 26-28: the sharded steps, {SHARD_RANKS} ranks on one card "
+        "(one process group; each phase's readings below)")
+    t26 = time.perf_counter()
+    sharded_figs, sharded_launches = sharded_main_paths()
+    log(f"  phases 26-28 took {time.perf_counter() - t26:.1f} s")
+
+    log("phase 29: float64 sharded paths, 2 ranks on the card against 2 on "
+        "the CPU and against the single-rank card step")
+    t29 = time.perf_counter()
+    sharded_card_vs_cpu()
+    log(f"  phase 29 took {time.perf_counter() - t29:.1f} s")
+
+    log("phase 30: results")
     replaces = {c["name"]: c["replaces"] for c in cases32 + k4_scene
                 + tri32 + k4_tri}
     replaces.update({t["name"]: ("mixedfem_tpu/ops/brick.py:176"
@@ -3013,6 +3371,8 @@ def main() -> int:
                         for n, r in solver_results.items()})
         by_path.update({f"host {n}": r["launches_by_kernel"].get(name, 0)
                         for n, r in host_results.items()})
+        by_path.update({n: tot.get(name, 0)
+                        for n, tot in sharded_launches.items()})
         if name in membrane_paths:
             # K1's and K7's shell and rod instances: phases 22 and 23
             path = membrane_paths[name]
@@ -3077,6 +3437,7 @@ def main() -> int:
                 "key", "ms", "plain_ms", "bound_ms", "library_ms",
                 "k2_same_rows_ms")}
         kernels.append(entry)
+    log(json.dumps({"sharded": sharded_figs}))
     log(f"{card}, ms_per_step {step_ms:.3f}, scene ms_per_step {scene_ms:.3f}, "
         f"grid ms_per_step {grid_ms:.3f}, contact ms_per_step {contact_ms:.3f}, "
         f"2D ms_per_step {tri_ms:.3f}, 2D contact ms_per_step "

@@ -1,7 +1,9 @@
 """Carry the JAX package's mesh, state (contact frames included),
 coarse space (geometric or grid), boundary conditions, press controllers,
-banded plan, stencil plan, Gauss-Seidel coloring and the Laplacian
-preconditioner's power-iteration start vector across to the port.
+banded plan, stencil plan, Gauss-Seidel coloring, the Laplacian
+preconditioner's power-iteration start vector, and the sharded paths'
+host plans (HaloPlan, VPPlan, ShardStencilPlan) and stacked per-shard
+arrays across to the port.
 
 The JAX objects are handed over as dicts of numpy arrays (one entry per
 dataclass field, nested dataclasses as nested dicts, static fields such as
@@ -50,6 +52,26 @@ def mesh_from_numpy(d: Mapping, dtype, device) -> MeshData:
         rod_frames=d.get("rod_frames") if rod else None,
         rod_L=d.get("rod_L") if rod else None,
     )
+
+
+def mesh_to_numpy(mesh: MeshData) -> dict:
+    """The dict mesh_from_numpy takes, from the port's MeshData (the way a
+    mesh built on one device crosses to the ranks of a sharded run)."""
+    d = {k: getattr(mesh, k).cpu().numpy() for k in _MESH_FIELDS}
+    d.update(models=tuple(mesh.models), dim=mesh.dim, shell=mesh.shell,
+             rod=mesh.rod)
+    for k in ("rest_normal", "rod_frames", "rod_L"):
+        if getattr(mesh, k) is not None:
+            d[k] = getattr(mesh, k).cpu().numpy()
+    return d
+
+
+def coarse_to_numpy(cs: CoarseSpace) -> dict:
+    """The dict coarse_from_numpy takes, from the port's CoarseSpace."""
+    d = {k: getattr(cs, k).cpu().numpy()
+         for k in ("agg_id", "r", "pair_id", "pair_rows", "pair_cols")}
+    d.update(naggr=cs.naggr, grid=cs.grid)
+    return d
 
 
 def coarse_from_numpy(d: Mapping, dtype, device) -> CoarseSpace:
@@ -176,6 +198,29 @@ def stencil_plan_from_numpy(d: Mapping, device) -> StencilPlan:
     )
 
 
+def stencil_plan_to_numpy(plan: StencilPlan) -> dict:
+    """The dict stencil_plan_from_numpy takes, from the port's StencilPlan
+    (the way a plan crosses to the ranks of a sharded run)."""
+    return dict(NI=plan.NI, NJ=plan.NJ, NK=plan.NK, nslots=plan.nslots,
+                terms=plan.terms, vec_terms=plan.vec_terms,
+                masks=plan.masks.cpu().numpy())
+
+
+def shard_plan_from_numpy(d: Mapping):
+    """The JAX ShardStencilPlan (masks, emask stacked over shards; NI, NJ,
+    NK, nslots, terms, D, Si, Sc) as the port's host ShardStencilPlan."""
+    from mixedfem_tpu_torch.parallel.stencil_shard import ShardStencilPlan
+
+    terms = tuple((int(p), int(t), int(a), int(b),
+                   tuple(int(c) for c in ca), int(o))
+                  for (p, t, a, b, ca, o) in d["terms"])
+    return ShardStencilPlan(
+        masks=np.asarray(d["masks"], np.float32),
+        emask=np.asarray(d["emask"], np.float32), NI=int(d["NI"]),
+        NJ=int(d["NJ"]), NK=int(d["NK"]), nslots=int(d["nslots"]),
+        terms=terms, D=int(d["D"]), Si=int(d["Si"]), Sc=int(d["Sc"]))
+
+
 def gs_plan_from_numpy(d: Mapping, dtype, device) -> GSPlan:
     """The JAX GSPlan (masks (C, nv), ncolors)."""
     return GSPlan(
@@ -183,6 +228,40 @@ def gs_plan_from_numpy(d: Mapping, dtype, device) -> GSPlan:
                            device=resolve_device(device)),
         ncolors=int(d["ncolors"]),
     )
+
+
+def halo_plan_from_numpy(d: Mapping):
+    """The JAX HaloPlan (T_local, emask, eidx stacked over shards; nb, Bd,
+    nv_pad, D) as the port's host HaloPlan, which run_ranks hands to the
+    ranks (parallel/halo.py rank_halo takes each rank's share)."""
+    from mixedfem_tpu_torch.parallel.halo import HaloPlan
+
+    return HaloPlan(
+        T_local=np.asarray(d["T_local"], np.int32),
+        emask=np.asarray(d["emask"]), eidx=np.asarray(d["eidx"], np.int32),
+        nb=int(d["nb"]), Bd=int(d["Bd"]), nv_pad=int(d["nv_pad"]),
+        D=int(d["D"]))
+
+
+def vp_plan_from_numpy(d: Mapping):
+    """The JAX VPPlan (its per-shard arrays stacked over shards, the
+    coarse space's agg_v, r_v and agg_e when naggr > 0) as the port's host
+    VPPlan, with the aggregate pair tables derived from agg_e
+    (parallel/vp_step.py pair_tables)."""
+    from mixedfem_tpu_torch.parallel import vp_step as vp
+
+    fields = {f: np.asarray(d[f]) for f in (
+        "T_local", "emask", "dphidX", "vols", "mass_coeff", "mu", "lam",
+        "model_id", "free_mask", "ext", "agg_v", "r_v", "agg_e")}
+    naggr = int(d["naggr"])
+    pairs = dict(pair_rows=None, pair_cols=None, pair_e=None)
+    if naggr > 0:
+        pairs = dict(zip(("pair_rows", "pair_cols", "pair_e"), vp.pair_tables(
+            fields["agg_e"], fields["emask"], naggr)))
+    return vp.VPPlan(
+        **fields, nb=int(d["nb"]), Bd=int(d["Bd"]), D=int(d["D"]),
+        nv_pad=int(d["nv_pad"]), dim=int(d["dim"]),
+        models=tuple(d["models"]), naggr=naggr, **pairs)
 
 
 def power_start_from_numpy(v, dtype, device) -> torch.Tensor:

@@ -450,6 +450,38 @@ def _line_search(E, eps_E: float, ls_iters: int, merit, alpha0: float = 1.0):
     return alpha, 1.0 if ls_k < ls_iters else 0.0
 
 
+def check_sharded(config: SimConfig, solver: str, mesh, matvec_plan,
+                  gs_plan, have_frames: bool, hp: bool, warm: bool,
+                  press_specs) -> None:
+    """What the element-sharded step (newton_step with a `comm`) covers:
+    3D tet solids with the mixed-stretch variable, the generic body with no
+    matvec plan, 'pcg' or 'pcg-block-jacobi' (the coarse space optional),
+    BDF1-6, no contact. Anything else raises NotImplementedError naming the
+    sharded paths that take it."""
+    other = []
+    if mesh.dim != 3 or mesh.shell or mesh.rod:
+        other.append("a mesh other than 3D tets")
+    if solver not in ("pcg", "pcg-block-jacobi"):
+        other.append(f"solver {solver!r}")
+    if matvec_plan is not None or gs_plan is not None:
+        other.append("a matvec or Gauss-Seidel plan")
+    if have_frames:
+        other.append("contact")
+    if "mixed-stretch" not in config.mixed_variables or (
+            "stretch" in config.variables or config.record_vanilla_gradient):
+        other.append("variables other than mixed-stretch")
+    if hp or warm:
+        other.append("f64 islands or warm-started rotations")
+    if press_specs:
+        other.append("press controllers")
+    if other:
+        raise NotImplementedError(
+            "the element-sharded step (newton_step with a comm) covers the "
+            "generic body with pcg or pcg-block-jacobi on 3D tets; not "
+            f"{', '.join(other)}: contact runs on parallel/vp_step.py, a "
+            "stencil plan on parallel/stencil_shard.py")
+
+
 def newton_step(
     mesh: meshmod.MeshData,
     config: SimConfig,
@@ -459,6 +491,7 @@ def newton_step(
     press_specs: Tuple[pressmod.PressSpec, ...] = (),
     matvec_plan: opmod.BandedPlan | stmod.StencilPlan | None = None,
     gs_plan: gsmod.GSPlan | None = None,
+    comm=None,
 ) -> SimState:
     """One implicit BDF timestep. `coarse` enables the two-level
     rigid-body coarse preconditioner (solver 'pcg' only); `matvec_plan`
@@ -473,7 +506,15 @@ def newton_step(
     the assemblies do; a shell ignores the plan. `gs_plan`
     (gauss_seidel.build_gs_plan) is required by 'gauss-seidel'. Contact
     runs over `state.contact` (Simulation.step builds it with the
-    broadphase)."""
+    broadphase).
+
+    `comm` (parallel/comm.py) makes this the element-sharded step of one
+    rank (parallel/sharding.py): `mesh` and `state` hold the rank's slice of
+    the elements and the whole vertex arrays, and every element-to-vertex
+    sum (the inertia gradient, the rhs, the diagonal blocks, the CG
+    matvec), the merit's element energies and the coarse space's pair sums
+    are followed by comm.psum; the Newton decrement's ds part by
+    comm.pmax. check_sharded says what it covers."""
     solver = check_supported(config)
     if solver in HOST_SOLVERS:
         raise ValueError(
@@ -486,6 +527,9 @@ def newton_step(
     # f64 islands for the cancellation-limited pieces
     hp = config.rhs_precision == "float64" and dtype != torch.float64
     check_state(solver, config, have_frames, gs_plan, hp)
+    if comm is not None:
+        check_sharded(config, solver, mesh, matvec_plan, gs_plan, have_frames,
+                      hp, config.rotation_warm_start, press_specs)
     dt = bdfmod.bdf_dt(state.bdf)
     h2 = dt * dt
     outer = config.outer_steps
@@ -505,8 +549,15 @@ def newton_step(
         mesh = dataclasses.replace(mesh, ext_force=mesh.ext_force + press_ext)
 
     def assemble(contrib):
-        """(E, k, ...) corner contributions -> (nv, ...), in a fixed order."""
-        return opmod.assemble(mesh, matvec_plan, contrib)
+        """(E, k, ...) corner contributions -> (nv, ...), in a fixed order
+        (and over the ranks, in rank order, with a comm)."""
+        out = opmod.assemble(mesh, matvec_plan, contrib)
+        return out if comm is None else comm.psum(out)
+
+    def total_energy(*args, **kw):
+        """_total_energy, summed over the ranks with a comm."""
+        e = _total_energy(*args, **kw)
+        return e if comm is None else comm.psum(e)
 
     target = disp.target(mesh, bdf, blend=config.inertia_blend_factor)
 
@@ -575,7 +626,7 @@ def newton_step(
             Ac = coarsemod.coarse_matrix(
                 mesh, coarse,
                 ms.update(mesh, state.x, state.s, dt) if use_mixed else None,
-                contact0)
+                contact0, reduce=None if comm is None else comm.psum)
             if config.coarse_inverse_method == "newton-schulz":
                 return coarsemod.coarse_inverse_ns(
                     Ac, state.precond if cached else None
@@ -738,7 +789,10 @@ def newton_step(
                 la_new = la + dl
 
         with record_function("newton.line_search"):
-            dec_t = torch.maximum(dx.abs().amax(), ds.abs().amax())
+            ds_max = ds.abs().amax()
+            if comm is not None:
+                ds_max = comm.pmax(ds_max)
+            dec_t = torch.maximum(dx.abs().amax(), ds_max)
             if use_contact:
                 cd, cact = cc.d, cc.active
                 dec_t = torch.maximum(dec_t, cdd.abs().amax())
@@ -756,16 +810,16 @@ def newton_step(
                 E = E64.to(dtype)
             else:
                 # --- merit at the base point (reuses S(x) from the update)
-                E = _total_energy(mesh, bdf, h2, x, s, la_new,
-                                  Sv=coeffs.Sv if use_mixed else None,
-                                  use_mixed=use_mixed, use_vanilla=use_vanilla)
+                E = total_energy(mesh, bdf, h2, x, s, la_new,
+                                 Sv=coeffs.Sv if use_mixed else None,
+                                 use_mixed=use_mixed, use_vanilla=use_vanilla)
                 if any_contact:
                     E = E + contact_energy(x, cd, cact, cla)
 
                 def merit(a):
-                    e = _total_energy(mesh, bdf, h2, x + a * dx, s + a * ds,
-                                      la_new, use_mixed=use_mixed,
-                                      use_vanilla=use_vanilla)
+                    e = total_energy(mesh, bdf, h2, x + a * dx, s + a * ds,
+                                     la_new, use_mixed=use_mixed,
+                                     use_vanilla=use_vanilla)
                     if any_contact:
                         e = e + contact_energy(x + a * dx, cd + a * cdd, cact,
                                                cla)
@@ -848,6 +902,8 @@ def newton_step(
                     mesh.free_mask[:, None]
             elif matvec_plan is None:
                 out = opmod.element_matvec(mesh, p, coeffs, vcc)
+                if comm is not None:
+                    out = comm.psum(out)
             else:
                 out = opmod.banded_matvec(mesh, matvec_plan, p, coeffs, vcc)
             if contact_matvec is not None:

@@ -234,7 +234,7 @@ def contact_pairs(cs: CoarseSpace, frames: np.ndarray, device) -> ContactPairs:
 
 def coarse_matrix(
     mesh: meshmod.MeshData, cs: CoarseSpace, ms_coeffs: Optional[StretchCoeffs],
-    contact=None,
+    contact=None, reduce=None,
 ) -> torch.Tensor:
     """Galerkin A_c = P^T (M + K [+ K_contact]) P, dense (6 naggr, 6 naggr),
     with a ridge of 3e-6 ||A_c||_inf against f32 assembly roundoff and rank
@@ -242,7 +242,9 @@ def coarse_matrix(
     pair plan (kernel K2 on the card), in a fixed order. `contact` is
     (ContactPairs of m frames, their vertex ids (m, 4), Gx (m, 4, 3), H
     (m,)): the barrier blocks Gx H Gx^T, summed per aggregate pair through
-    the pair plan (K2) and added once per pair."""
+    the pair plan (K2) and added once per pair. `reduce` (the
+    element-sharded step's comm.psum) sums the element pair sums over the
+    ranks when given."""
     _no_tf32()
     dt = mesh.vols.dtype
     B = _vert_modes(cs, mesh.free_mask, mesh.dim)
@@ -255,6 +257,8 @@ def coarse_matrix(
     npairs = cs.pair_rows.shape[0]
     E, k = mesh.T.shape
     pair_sums = assembly.segment_sum(cs.pair_plan, blocks.reshape(E, k * k, 36))
+    if reduce is not None:
+        pair_sums = reduce(pair_sums)
 
     ncd = cs.ncd
     Ac = torch.zeros((cs.naggr, cs.naggr, 6, 6), dtype=dt, device=blocks.device)

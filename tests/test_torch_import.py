@@ -1,6 +1,6 @@
 """mixedfem_tpu_torch and chip_smoke.py stand alone: importing every module
-of the port loads neither JAX nor the JAX package, and no source file of
-the port names either."""
+of the port (its sharded paths in parallel/ included) loads neither JAX
+nor the JAX package, and no source file of the port names either."""
 
 import ast
 import os
@@ -47,6 +47,16 @@ def test_import_loads_no_jax():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+def test_parallel_modules_are_walked():
+    """The sharded paths (mixedfem_tpu_torch/parallel/) are among the
+    modules and sources the two checks here walk."""
+    names = {p.stem for p in (PKG / "parallel").glob("*.py")}
+    assert {"reorder", "comm", "launch", "halo", "sharding", "vp_step",
+            "stencil_shard", "dryrun", "ranks"} <= names
+    walked = set(_sources())
+    assert all(p in walked for p in (PKG / "parallel").glob("*.py"))
 
 
 def test_sources_name_no_jax():
