@@ -242,7 +242,7 @@ failure:
 26-28. the sharded steps (mixedfem_tpu_torch/parallel/), float32, on
    SHARD_RANKS = 4 ranks on the one card in one process group over gloo
    staged through pinned host buffers (NCCL refuses two ranks on one
-   device, so the card shows no scaling), one warm-up and two timed steps
+   device, so the card shows no scaling), one warm-up and one timed step
    each: 26 the vertex-partitioned 100k-tet beam (RCM order, two-level
    coarse space), run twice from the same start, whose positions must
    repeat bit for bit; 27 the I-slab sharded stencil step on phase 8's
@@ -257,12 +257,31 @@ failure:
    card against 2 gloo ranks on the CPU started beside them, 2 steps: to
    1e-9 of scale, Newton counts equal, CG within 2% (contact 10%); each
    card run also against the single-rank card step of the same size.
-30. one JSON line of phases 21-23's runs, one of phases 24-25's, one of
-   phases 26-28's, one of kernel results (the 2D instances and widths
+30-31. the element-sharded Simulation.step (parallel/sharding.py
+   shard_scene) on ES_RANKS = 2 ranks on the one card, as in 26-28, one
+   warm-up and one timed step, float32: 30 phase 11's contact scene
+   (load_scene on each rank: banded order, the rank's banded plan, coarse
+   space, the broadphase on every rank); 31 phase 22's cloth. Each prints
+   what 26-28 print and the broadphase's ms on each rank; K1, K2, K3 and
+   K4 (30) and K1 and K7 k3d3 (31) must launch on every rank, and the
+   ranks must hold the same frames and positions.
+32. float64 (one case f32) at the CPU tests' sizes: one case of every
+   path of the element-sharded step through Simulation.step (3D and 2D
+   mixed contact, nodal collision (its box moved off the slab's vertex,
+   _es_small_cases), friction, a 2D solid, a shell, rods,
+   the eight on-device solvers, the banded plan, warm rotations, the
+   vanilla stretch, a press, the three host solvers, f64 islands on an
+   f32 state), 2 ranks on the card against 2 gloo ranks on the CPU
+   started beside them, 2 steps: to 1e-9 of scale (the islands' f32
+   state 1e-5), Newton counts equal, Krylov counts within 2% (contact
+   10%), equal frames, the host solvers' ranks bit for bit; every
+   mismatch is listed before the phase fails.
+33. one JSON line of phases 21-23's runs, one of phases 24-25's, one of
+   phases 26-31's, one of kernel results (the 2D instances and widths
    with launches_by_path for tri_step and tri_contact_step, the shell and
-   rod instances for shell_step and rod_step, the sharded paths, for each solver of phase 17, each case of phase 19, of
-   phase 21, of phases 24-25 and of phases 26-28), then the device line
-   last.
+   rod instances for shell_step and rod_step, the sharded paths, for each
+   solver of phase 17, each case of phase 19, of phase 21, of phases
+   24-25 and of phases 26-31), then the device line last.
 
 --profile DIR additionally traces one more step of each main path with
 torch.profiler, logs the device time of each hand kernel in it, and writes
@@ -2689,7 +2708,7 @@ def sharded_main_paths():
     """Phases 26-28 in one process group of SHARD_RANKS ranks on the card:
     the vertex-partitioned 100k-tet beam (RCM order, two-level), the
     sharded stencil step on the 100k-tet grid, the element-sharded
-    100k-tet beam; one warm-up and two timed steps each (the vp run made
+    100k-tet beam; one warm-up and one timed step each (the vp run made
     twice). Returns (figures by path, launches by path summed over ranks)."""
     from mixedfem_tpu_torch import convert
     from mixedfem_tpu_torch.parallel import launch, ranks
@@ -2704,7 +2723,7 @@ def sharded_main_paths():
         f"{D} ranks: nb {plan.nb} Bd {plan.Bd} Ep {plan.T_local.shape[1]}, "
         f"aggregates {cs.naggr}")
     xp = vp.pad_vertex_field(plan, V.astype(np.float32))
-    vp_call = (ranks.vp_steps, (plan, config, xp, np.zeros_like(xp), 2),
+    vp_call = (ranks.vp_steps, (plan, config, xp, np.zeros_like(xp), 1),
                dict(warmup=1, repeat=True))
     gmesh, gconfig, _gs, gcs, gplan = grid_beam(40, 25, 20, torch.float32,
                                                 "cpu")
@@ -2713,12 +2732,12 @@ def sharded_main_paths():
         f"of {-(-gplan.NI // D)} planes, aggregates {gcs.naggr}")
     st_call = (ranks.stencil_steps, (
         convert.mesh_to_numpy(gmesh), convert.stencil_plan_to_numpy(gplan),
-        convert.coarse_to_numpy(gcs), gconfig, GV, np.zeros_like(GV), 2),
+        convert.coarse_to_numpy(gcs), gconfig, GV, np.zeros_like(GV), 1),
         dict(warmup=1))
     bmesh, bconfig, BV, bcs = _host_beam(40, 25, 20)
     es_call = (ranks.element_sharded_steps, (
         convert.mesh_to_numpy(bmesh), convert.coarse_to_numpy(bcs), bconfig,
-        BV, np.zeros_like(BV), 2), dict(warmup=1))
+        BV, np.zeros_like(BV), 1), dict(warmup=1))
     log(f"  host set-up {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     out = launch.run_ranks(ranks.sequence, D, devices=["cuda:0"] * D,
@@ -2940,6 +2959,290 @@ def sharded_card_vs_cpu():
             if not err1 <= tol1 * scale:
                 raise AssertionError(f"{name}: the sharded card run leaves "
                                      "the single-rank card step")
+
+
+# ---------------------------------------------------------------------------
+# phases 30-32: the element-sharded step over Simulation.step
+
+ES_RANKS = 2
+
+
+def _es_runs(target, args, kwargs, devices, deadline=900):
+    """One element-sharded run of `target` (a ranks.py target) on
+    ES_RANKS ranks on `devices`: every rank's timed steps."""
+    from mixedfem_tpu_torch.parallel import launch
+
+    return launch.run_ranks(target, ES_RANKS, devices=devices, args=args,
+                            kwargs=kwargs, timeout=60, deadline=deadline)
+
+
+def _es_report(label, runs, need):
+    """rank_figures of an element-sharded Simulation run, the broadphase's
+    ms on each rank, and every rank's frames and positions equal."""
+    fig = rank_figures(label, runs, need)
+    fig["broadphase_ms_by_rank"] = [sum(s["broadphase_ms"] for s in r)
+                                    / len(r) for r in runs]
+    fig["frames"] = len(runs[0][-1]["frames"])
+    fig["active_frames"] = runs[0][-1]["active"]
+    log(f"  broadphase ms per step by rank "
+        f"{[round(v, 3) for v in fig['broadphase_ms_by_rank']]}, candidate "
+        f"frames {fig['frames']}, most active {fig['active_frames']}")
+    for r in runs[1:]:
+        for a, b in zip(r, runs[0]):
+            if not np.array_equal(a["frames"], b["frames"]):
+                raise AssertionError(f"{label}: the ranks' frames differ")
+            if not np.array_equal(a["x"], b["x"]):
+                raise AssertionError(f"{label}: the ranks' positions differ")
+    return fig
+
+
+def es_contact_main_path():
+    """Phase 30: phase 11's contact scene (92,480 tets, load_scene on each
+    rank: banded order, banded plan, coarse space), element-sharded over
+    ES_RANKS ranks on the card through Simulation.step, float32, one
+    warm-up and one timed step. K1 (tet), K2, K3 and K4 must launch on
+    every rank, and every rank must hold the same frames."""
+    from mixedfem_tpu_torch.parallel import ranks
+
+    with tempfile.TemporaryDirectory() as d:
+        path = write_contact_scene(d)
+        runs = _es_runs(ranks.scene_steps, (path, 3, "float32", 1),
+                        dict(warmup=1), ["cuda:0"] * ES_RANKS)
+    return _es_report("es_contact_step", runs, (
+        "element_apply", "banded_sum_m3", "banded_sum_m9", "segment_sum_m3",
+        "segment_sum_m9", "segment_sum_m6", "segment_sum_m36",
+        "contract_G_Gw"))
+
+
+def es_cloth_main_path():
+    """Phase 31: phase 22's cloth (100,352 triangles), element-sharded over
+    ES_RANKS ranks on the card through Simulation.step, float32, one
+    warm-up and one timed step; K1's and K7's k3d3 instances must launch
+    on every rank."""
+    from mixedfem_tpu_torch import convert, cuda
+    from mixedfem_tpu_torch.parallel import ranks
+
+    mesh, config, _ = cloth(224, 224, torch.float32, "cpu")
+    V = mesh.V0.numpy()
+    sh = cuda.SHAPES[(3, 3)]
+    runs = _es_runs(ranks.simulation_steps, (
+        convert.mesh_to_numpy(mesh), config, V, np.zeros_like(V), 1),
+        dict(warmup=1), ["cuda:0"] * ES_RANKS)
+    return _es_report("es_cloth_step", runs, (sh.k1, sh.k7))
+
+
+def _es_small_cases(nodal_shift: float = 0.02):
+    """Phase 32's cases at the CPU tests' sizes (tests/test_torch_parallel_
+    es_*.py's inputs, built here without the JAX package): [(name, (target,
+    args, kwargs), Krylov band, position tolerance)] for ranks.sequence.
+
+    The nodal collision case's box is moved `nodal_shift` along x from the
+    JAX tests' drop scene. There the box's middle bottom vertex lies
+    exactly over a slab vertex, so two point-edge frames have their
+    closest-point parameter t exactly at a clamp. The clamped distance's
+    Hessian differs on the two sides of a clamp, and which side a t of
+    0 or one ulp lands on is rounding's to decide: the card and the CPU
+    take different Hessians there (tools/es_floor.py, PERF.md §6)."""
+    from mixedfem_tpu_torch import convert
+    from mixedfem_tpu_torch.config import SimConfig, enu_to_lame
+    from mixedfem_tpu_torch.mesh import generators
+    from mixedfem_tpu_torch.mesh import mesh as meshmod
+    from mixedfem_tpu_torch.parallel import ranks
+    from mixedfem_tpu_torch.solvers.operator import sort_elements_banded
+
+    def build(V, T, fixed, ext, E=1e6, nu=0.45, model="Stable-Neohookean"):
+        la, mu = enu_to_lame(E, nu)
+        return convert.mesh_to_numpy(meshmod.build_mesh_data(
+            V, T, density=np.full(len(T), 1000.0), mu=np.full(len(T), mu),
+            lam=np.full(len(T), la), model_id=np.zeros(len(T), int),
+            models=(model,), is_fixed=fixed,
+            ext_force=np.tile(ext, (len(V), 1)), device="cpu"))
+
+    def drop(dim, shift=0.0):
+        """tests/test_collision.py:drop_scene, the box thrown down (and
+        moved `shift` along x)."""
+        if dim == 3:
+            V1, T1 = generators.box_tet_mesh(2, 1, 2, size=(1.0, 0.25, 1.0))
+            V2, T2 = generators.box_tet_mesh(2, 1, 2, size=(0.4, 0.2, 0.4))
+            V2 = V2 + np.array([0.3, 0.27, 0.3])
+        else:
+            V1, T1 = generators.grid_tri_mesh(4, 1, size=(1.0, 0.2))
+            V2, T2 = generators.grid_tri_mesh(2, 1, size=(0.3, 0.15))
+            V2 = V2 + np.array([0.35 + shift, 0.23])
+        V = np.concatenate([V1, V2])
+        T = np.concatenate([T1, T2 + len(V1)])
+        ext = np.zeros(dim)
+        ext[1] = -9.8
+        v0 = np.zeros_like(V)
+        v0[len(V1):, 1] = -0.8 if dim == 3 else -1.5
+        return build(V, T, np.arange(len(V)) < len(V1), ext, nu=0.40), V, v0
+
+    def swing(V):
+        v0 = np.zeros_like(V)
+        v0[:, 1] = -2.0 * V[:, 0] / 4.0
+        return v0
+
+    Vb, Tb = generators.box_tet_mesh(4, 2, 2, size=(4.0, 1.0, 1.0))
+    Tb = Tb[sort_elements_banded(Tb)]
+    beam = build(Vb, Tb, Vb[:, 0] < 1e-9, [0.0, -9.8, 0.0])
+    fung = build(Vb, Tb, Vb[:, 0] < 1e-9, [0.0, -9.8, 0.0], model="Fung")
+    Vt, Tt = generators.grid_tri_mesh(8, 2, size=(4.0, 1.0))
+    tri = build(Vt, Tt, Vt[:, 0] < 1e-9, [0.0, -9.8])
+    shell, _, _ = cloth(4, 4, torch.float64, "cpu")
+    Vc = shell.V0.numpy()
+    Vr = np.zeros((9, 3))
+    Vr[:, 0] = np.linspace(0.0, 1.0, 9)
+    la, mu = enu_to_lame(1e7, 0.40)
+    rod = convert.mesh_to_numpy(meshmod.build_rod_mesh_data(
+        Vr, np.stack([np.arange(8), np.arange(1, 9)], axis=1),
+        density=np.full(8, 1000.0), mu=np.full(8, mu), lam=np.full(8, la),
+        model_id=np.zeros(8, int), models=("ARAP",),
+        is_fixed=np.arange(9) == 0,
+        ext_force=np.tile([0.0, -9.8, 0.0], (9, 1)), radius=5e-3,
+        device="cpu"))
+    step = dict(h=0.02, outer_steps=3, newton_tol=0.0, itr_tol=1e-10,
+                max_iterative_solver_iters=2000, dtype="float64",
+                mixed_variables=("mixed-stretch",))
+    # contact solves to 1e-11: a CG stop that rounding moves by an
+    # iteration then moves the positions far less than 1e-9 of scale
+    contact = dict(h=0.01, outer_steps=3, itr_tol=1e-11,
+                   max_iterative_solver_iters=2000, dhat=1e-2, kappa=1e5,
+                   enable_ccd=True, dtype="float64",
+                   mixed_variables=("mixed-stretch", "mixed-collision"))
+    nodal = dict(contact, mixed_variables=("mixed-stretch",))
+    membrane = dict(h=0.01, outer_steps=3, itr_tol=1e-10,
+                    max_iterative_solver_iters=2000, dtype="float64",
+                    mixed_variables=("mixed-stretch",))
+    V3, Vd2, Vn2 = drop(3), drop(2), drop(2, nodal_shift)
+    forced = (Vb[:, 0] > 3.9).astype(np.float64)
+    press = ({"forced": forced, "axis": 1,
+              "marker": int(np.nonzero(forced)[0][0]),
+              "target_velocity": -0.5, "max_force": 2e4,
+              "max_displacement": 0.5},
+             {"f": -5e3, "marker_pos": float(Vb[int(np.nonzero(forced)[0][0]),
+                                                1]),
+              "marker_pos0": float(Vb[int(np.nonzero(forced)[0][0]), 1])})
+    power = np.random.default_rng(0).standard_normal(Vb.shape)
+    cases = [
+        ("mixed-collision 3D", V3[0], contact, V3[1], V3[2], {}, 0.10),
+        ("mixed-collision 2D", Vd2[0], contact, Vd2[1], Vd2[2], {}, 0.10),
+        ("nodal collision 2D", Vn2[0], dict(nodal, variables=("collision",)),
+         Vn2[1], Vn2[2], {}, 0.10),
+        ("friction 2D", Vd2[0], dict(nodal, variables=("friction",),
+                                     contact_mu=0.3),
+         Vd2[1], Vd2[2] + np.array([0.3, 0.0]) * (Vd2[2][:, 1:] != 0), {},
+         0.10),
+        ("2D solid", tri, step, Vt, swing(Vt), {}, 0.02),
+        ("shell", convert.mesh_to_numpy(shell), membrane, Vc,
+         np.zeros_like(Vc), {}, 0.02),
+        ("rod", rod, membrane, Vr, np.zeros_like(Vr), {}, 0.02),
+    ]
+    for solver in ("pcg-diag", "pcg-laplacian", "pcg-dualascent",
+                   "gauss-seidel", "minres-kkt", "minres-kkt-admm", "dual-cg",
+                   "admm"):
+        build_kw = {}
+        if solver in ("pcg-laplacian", "pcg-dualascent"):
+            build_kw["power_v0"] = power
+        if solver == "gauss-seidel":
+            build_kw["gs"] = True
+        # one Newton iteration a step: the script's time (phase 17's cut)
+        cfg = dict(step, solver=solver, outer_steps=1)
+        if solver == "admm":
+            cfg.update(itr_tol=1e-4, max_iterative_solver_iters=500)
+        cases.append((solver, fung, cfg, Vb, swing(Vb), build_kw, 0.02))
+    cases += [
+        ("banded plan", beam, dict(step, solver="pcg-block-jacobi"), Vb,
+         swing(Vb), dict(banded=True), 0.02),
+        ("warm rotations", beam, dict(step, rotation_warm_start=True), Vb,
+         swing(Vb), {}, 0.02),
+        ("vanilla stretch", beam, dict(step, variables=("stretch",),
+                                       record_vanilla_gradient=True,
+                                       solver="pcg-block-jacobi"),
+         Vb, swing(Vb), {}, 0.02),
+        ("press", beam, step, Vb, np.zeros_like(Vb), dict(press=(press,)),
+         0.02),
+    ]
+    for solver in ("direct", "pcg-ic", "amgcl"):
+        cases.append((f"host {solver}", beam, dict(step, solver=solver,
+                                                   outer_steps=1), Vb,
+                      swing(Vb), {}, 0.02))
+    out = [(name, (ranks.simulation_steps,
+                   (mesh_np, SimConfig(**cfg), x0, v0, 2), kw), band, 1e-9)
+           for name, mesh_np, cfg, x0, v0, kw, band in cases]
+    # f64 islands run on a float32 state: card and CPU part at float32
+    # rounding there
+    out.append(("f64 islands (float32 state)", (ranks.simulation_steps, (
+        beam, SimConfig(**dict(step, dtype="float32", itr_tol=1e-6,
+                              rhs_precision="float64")),
+        Vb.astype(np.float32), swing(Vb).astype(np.float32), 2), {}),
+        0.02, 1e-5))
+    return out
+
+
+def es_card_vs_cpu():
+    """Phase 32: one case of each path the element-sharded step took on in
+    this slice (contact in 3D and 2D, nodal collision, friction, a 2D
+    solid, a shell, rods, each on-device solver, the banded plan, warm
+    rotations, the vanilla stretch, a press, the host solvers; f64
+    islands), at the CPU tests' sizes, 2 steps through Simulation.step on
+    ES_RANKS ranks on the card against ES_RANKS gloo ranks on the CPU
+    started beside them (the solvers' steps at one Newton iteration, the
+    script's time): float64 positions to 1e-9 of scale (the float32
+    island state's to 1e-5), Newton counts equal, Krylov counts within 2%
+    (contact 10%) outside the last Newton iteration of a longer step,
+    every rank's frames equal, and the host solvers' ranks equal bit for
+    bit.
+    Prints each case's host ms per step on both sides."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mixedfem_tpu_torch.parallel import launch, ranks
+
+    cases = _es_small_cases()
+    calls = [c[1] for c in cases]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        card = pool.submit(launch.run_ranks, ranks.sequence, ES_RANKS,
+                           devices=["cuda:0"] * ES_RANKS, args=(calls,),
+                           timeout=60, deadline=900)
+        cpu = pool.submit(launch.run_ranks, ranks.sequence, ES_RANKS,
+                          args=(calls,), timeout=60, deadline=900)
+        card, cpu = card.result(), cpu.result()
+    log(f"  {ES_RANKS} card ranks and {ES_RANKS} CPU ranks took "
+        f"{time.perf_counter() - t0:.1f} s for {len(cases)} cases")
+    bad = []
+    for i, (name, _, band, tol) in enumerate(cases):
+        g_runs, c_runs = [o[i] for o in card], [o[i] for o in cpu]
+        for k in range(2):
+            g, c = g_runs[0][k], c_runs[0][k]
+            scale = np.abs(c["x"]).max()
+            err = np.abs(g["x"].astype(np.float64) - c["x"]).max()
+            kry_g, kry_c = g["solver_iters"], c["solver_iters"]
+            log(f"  {name} step {k}: max |x_card - x_cpu| {err:.3e} (scale "
+                f"{scale:.3f}); Newton card {g['iterations']} cpu "
+                f"{c['iterations']}; Krylov card {kry_g.tolist()} cpu "
+                f"{kry_c.tolist()}; frames {len(g['frames'])}; host ms "
+                f"card {g['ms']:.1f} cpu {c['ms']:.1f}; collectives a rank "
+                f"{g['comm_calls']}")
+            if not err <= tol * scale:
+                bad.append(f"{name} step {k}: the card's ranks leave the CPU's")
+            if g["iterations"] != c["iterations"]:
+                bad.append(f"{name} step {k}: Newton counts differ")
+            # the last Newton iteration's count sits at the rounding floor
+            # (parallel_parity.check_steps); a one-iteration step keeps it
+            n = max(len(kry_c) - 1, 1)
+            lim = np.maximum(np.ceil(band * kry_c[:n]), 1)
+            if not (len(kry_g) == len(kry_c) and np.all(
+                    np.abs(kry_g[:n] - kry_c[:n]) <= lim)):
+                bad.append(f"{name} step {k}: Krylov counts leave the band")
+            if not all(np.array_equal(r[k]["frames"], c["frames"])
+                       for r in g_runs + c_runs):
+                bad.append(f"{name} step {k}: the ranks' frames differ")
+            if name.startswith("host") and not all(
+                    np.array_equal(r[k]["x"], g["x"]) for r in g_runs[1:]):
+                bad.append(f"{name} step {k}: the card's ranks differ in "
+                           "their bits")
+    if bad:
+        raise AssertionError("; ".join(bad))
 
 
 def profile_step(step, out_dir, name, untraced_ms):
@@ -3336,8 +3639,30 @@ def main() -> int:
     t29 = time.perf_counter()
     sharded_card_vs_cpu()
     log(f"  phase 29 took {time.perf_counter() - t29:.1f} s")
+    log(f"phase 30: the element-sharded contact scene, 92k tets, {ES_RANKS} "
+        "ranks on one card, float32 (load_scene, Simulation.step)")
+    t30 = time.perf_counter()
+    es_figs = {"es_contact_step": es_contact_main_path()}
+    log(f"  phase 30 took {time.perf_counter() - t30:.1f} s")
+    log(f"phase 31: the element-sharded cloth, 100,352 triangles, {ES_RANKS} "
+        "ranks on one card, float32")
+    t31 = time.perf_counter()
+    es_figs["es_cloth_step"] = es_cloth_main_path()
+    log(f"  phase 31 took {time.perf_counter() - t31:.1f} s")
+    log(f"phase 32: float64 element-sharded Simulation.step, {ES_RANKS} ranks "
+        f"on the card against {ES_RANKS} on the CPU, each path of this slice")
+    t32 = time.perf_counter()
+    es_card_vs_cpu()
+    log(f"  phase 32 took {time.perf_counter() - t32:.1f} s")
+    for name, fig in es_figs.items():
+        tot = {}
+        for r in fig["launches_by_rank"]:
+            for k, v in r.items():
+                tot[k] = tot.get(k, 0) + v
+        sharded_launches[name] = tot
+        sharded_figs[name] = fig
 
-    log("phase 30: results")
+    log("phase 33: results")
     replaces = {c["name"]: c["replaces"] for c in cases32 + k4_scene
                 + tri32 + k4_tri}
     replaces.update({t["name"]: ("mixedfem_tpu/ops/brick.py:176"

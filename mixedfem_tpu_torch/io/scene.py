@@ -31,7 +31,10 @@ With contact, Simulation.step runs the host broadphase once per step
 over the boundary edges; under the profiler span `scene.broadphase`) with
 a margin that covers the expected motion, and re-runs the step from the
 saved pre-step state with a wider margin when the step moved a vertex
-further than that.
+further than that. A rank's share of an element-sharded scene
+(parallel/sharding.py shard_scene) runs the same broadphase over the
+whole positions, which every rank holds, and so finds the same frames and
+makes the same retries as every other rank.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import time
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -90,6 +94,13 @@ class Simulation:
     matvec_plan: Optional[opmod.BandedPlan] = None
     gs_plan: Optional[gsmod.GSPlan] = None  # the 'gauss-seidel' coloring
     retries: int = 0  # contact steps re-run with a wider margin
+    # a rank's comm (parallel/comm.py) when this is a rank's share of an
+    # element-sharded scene (parallel/sharding.py shard_scene), else None
+    comm: Optional[object] = None
+    # the unsharded mesh of a rank's share, over which the host solvers
+    # assemble their system (optimizer/newton_direct.py), else None
+    whole_mesh: Optional[MeshData] = None
+    broadphase_ms: float = 0.0  # host ms of the broadphase, summed
 
     def skinned_surfaces(self):
         """The attached render meshes, advected with the current positions."""
@@ -102,11 +113,12 @@ class Simulation:
         if resolve_solver(self.config.solver) in HOST_SOLVERS:
             return newton_step_direct(
                 self.mesh, self.config, self.bc_specs, self.state,
-                self.press_specs, self.matvec_plan,
+                self.press_specs, self.matvec_plan, comm=self.comm,
+                whole_mesh=self.whole_mesh,
             )
         return newton_step(
             self.mesh, self.config, self.bc_specs, self.state, self.coarse,
-            self.press_specs, self.matvec_plan, self.gs_plan,
+            self.press_specs, self.matvec_plan, self.gs_plan, comm=self.comm,
         )
 
     def step(self) -> SimState:
@@ -140,6 +152,7 @@ class Simulation:
         """Host broadphase once per step with margin 1.1 dhat plus twice the
         expected motion; returns the per-vertex motion budget that margin
         covers."""
+        t0 = time.perf_counter()
         V = self.state.x.cpu().numpy()
         v = self.state.bdf.v_hist[0].cpu().numpy()
         motion = np.linalg.norm(v, axis=1).max() * self.config.h if len(v) else 0.0
@@ -162,6 +175,7 @@ class Simulation:
         x = self.state.x
         self.state = dataclasses.replace(self.state, contact=contact_frames(
             f, t, m, self.mesh.nv, x.dtype, x.device))
+        self.broadphase_ms += (time.perf_counter() - t0) * 1e3
         return motion
 
     def attach_precond_cache(self):

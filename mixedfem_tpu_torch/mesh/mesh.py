@@ -311,6 +311,15 @@ def mass_matvec(mesh: MeshData, x: torch.Tensor) -> torch.Tensor:
     return assembly.segment_sum(mesh.plan, ye)
 
 
+def safe_vols(mesh: MeshData) -> torch.Tensor:
+    """The element volumes with 1 in place of 0: the divisor of the paths
+    that divide by an element's volume. The padded elements of a rank's
+    slice (parallel/sharding.py) have zero volume and zero rows, which then
+    stay zero instead of becoming 0/0; a real element's volume is
+    positive and kept as it is."""
+    return torch.where(mesh.vols > 0, mesh.vols, torch.ones_like(mesh.vols))
+
+
 def project_free(mesh: MeshData, x: torch.Tensor) -> torch.Tensor:
     """Zero out rows at pinned vertices."""
     return x * mesh.free_mask[:, None]

@@ -21,7 +21,7 @@ version adds in the same order.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -45,6 +45,10 @@ class IncidencePlan:
     piece_ptr: Optional[torch.Tensor] = None   # (P+1,) int32 slot offsets
     seg_pieces: Optional[torch.Tensor] = None  # (nseg+1,) int32 piece offsets
     piece_seg: Optional[torch.Tensor] = None   # (P,) int64 segment of each
+    # the sum over ranks that follows every sum over the plan: on a rank of
+    # the element-sharded step (parallel/sharding.py) the plan spans the
+    # rank's elements and `reduce` is its comm.psum; None on one device
+    reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
 
     @property
     def nrows(self) -> int:
@@ -111,7 +115,8 @@ def segment_sum_plain(plan: IncidencePlan, rows: torch.Tensor) -> torch.Tensor:
 
 
 def segment_sum(plan: IncidencePlan, rows: torch.Tensor) -> torch.Tensor:
-    """Sum rows (E, k, *trail) into segments: (nseg, *trail).
+    """Sum rows (E, k, *trail) into segments: (nseg, *trail), then over the
+    ranks when the plan has a `reduce`.
 
     On a CUDA tensor this launches kernel K2; on a CPU tensor it runs
     segment_sum_plain."""
@@ -131,4 +136,15 @@ def segment_sum(plan: IncidencePlan, rows: torch.Tensor) -> torch.Tensor:
             plan.row_ptr, plan.slots, flat.contiguous(), plan.nseg,
             plan.piece_ptr, plan.seg_pieces,
         )
+    if plan.reduce is not None:
+        out = plan.reduce(out)
     return out.reshape((plan.nseg,) + trail)
+
+
+def with_reduce(plan, reduce):
+    """A copy of the incidence or banded plan `plan` whose sums are
+    followed by `reduce` (the element-sharded step's comm.psum); None stays
+    None."""
+    if plan is None or plan.reduce == reduce:
+        return plan
+    return dataclasses.replace(plan, reduce=reduce)

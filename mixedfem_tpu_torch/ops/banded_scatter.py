@@ -20,6 +20,7 @@ module has no caller on any path and is not ported.
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -40,6 +41,8 @@ class ScatterPlan:
     W: int                    # window width (max span of a chunk, lane-padded)
     nv: int
     csr: assembly.IncidencePlan  # K4's plan: each vertex's rows, ascending
+    # the sum over ranks after each sum (assembly.IncidencePlan.reduce)
+    reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
 
     @property
     def nchunks(self) -> int:
@@ -112,18 +115,20 @@ def banded_sum_plain(plan: ScatterPlan, rows: torch.Tensor) -> torch.Tensor:
 
 
 def scatter_add_sorted(plan: ScatterPlan, rows: torch.Tensor) -> torch.Tensor:
-    """Segment sum of rows already in the plan's order, (Rp, m) -> (nv, m).
-    On a CUDA tensor this launches kernel K4; on a CPU tensor it runs
-    banded_sum_plain."""
+    """Segment sum of rows already in the plan's order, (Rp, m) -> (nv, m),
+    then over the ranks when the plan has a `reduce`. On a CUDA tensor this
+    launches kernel K4; on a CPU tensor it runs banded_sum_plain."""
     Rp = plan.lidx.shape[0]
     if rows.ndim != 2 or rows.shape[0] != Rp:
         raise ValueError(f"rows of shape {tuple(rows.shape)} for a plan over "
                          f"{Rp} rows")
     if rows.device.type == "cpu":
-        return banded_sum_plain(plan, rows)
-    c = plan.csr
-    return cuda.banded_sum(c.row_ptr, c.slots, rows.contiguous(), plan.nv,
-                           c.piece_ptr, c.seg_pieces)
+        out = banded_sum_plain(plan, rows)
+    else:
+        c = plan.csr
+        out = cuda.banded_sum(c.row_ptr, c.slots, rows.contiguous(), plan.nv,
+                              c.piece_ptr, c.seg_pieces)
+    return out if plan.reduce is None else plan.reduce(out)
 
 
 def pad_rows(plan: ScatterPlan, rows: torch.Tensor) -> torch.Tensor:

@@ -321,17 +321,21 @@ def island_local_solve(mesh_hp, cf, coeffs, cc, s, la, dx):
 def island_merit(mesh_hp, bdf_hp, h2, x, s, dx, ds, la, *,
                  use_mixed: bool = True, use_vanilla: bool = False, cf=None,
                  cc=None, dd=None, cla=None, cact=None, dhat: float = 0.0,
-                 kappa: float = 0.0, ee_mollifier: bool = False):
+                 kappa: float = 0.0, ee_mollifier: bool = False, reduce=None):
     """The f64 islands' merit: a function of alpha giving, in float64, the
     merit at x + alpha dx, s + alpha ds with the multipliers la (the
     stateless polar at every alpha, 0 included), plus with `cc` the mixed
     contact terms at the mixed distances cc.d + alpha dd with the
-    multipliers cla over the active mask cact (the JAX step's merit64)."""
+    multipliers cla over the active mask cact (the JAX step's merit64).
+    `reduce` (the element-sharded step's comm.psum) sums the element
+    energies over the ranks before the contact terms join."""
     x64, s64, dx64 = x.double(), s.double(), dx.double()
 
     def merit(a):
         e = _total_energy(mesh_hp, bdf_hp, h2, x64 + a * dx64, s64 + a * ds,
                           la, use_mixed=use_mixed, use_vanilla=use_vanilla)
+        if reduce is not None:
+            e = reduce(e)
         if cc is not None:
             with record_function("newton.contact"):
                 e = e + mixed_contact_merit(
@@ -450,36 +454,40 @@ def _line_search(E, eps_E: float, ls_iters: int, merit, alpha0: float = 1.0):
     return alpha, 1.0 if ls_k < ls_iters else 0.0
 
 
-def check_sharded(config: SimConfig, solver: str, mesh, matvec_plan,
-                  gs_plan, have_frames: bool, hp: bool, warm: bool,
-                  press_specs) -> None:
-    """What the element-sharded step (newton_step with a `comm`) covers:
-    3D tet solids with the mixed-stretch variable, the generic body with no
-    matvec plan, 'pcg' or 'pcg-block-jacobi' (the coarse space optional),
-    BDF1-6, no contact. Anything else raises NotImplementedError naming the
-    sharded paths that take it."""
-    other = []
-    if mesh.dim != 3 or mesh.shell or mesh.rod:
-        other.append("a mesh other than 3D tets")
-    if solver not in ("pcg", "pcg-block-jacobi"):
-        other.append(f"solver {solver!r}")
-    if matvec_plan is not None or gs_plan is not None:
-        other.append("a matvec or Gauss-Seidel plan")
-    if have_frames:
-        other.append("contact")
-    if "mixed-stretch" not in config.mixed_variables or (
-            "stretch" in config.variables or config.record_vanilla_gradient):
-        other.append("variables other than mixed-stretch")
-    if hp or warm:
-        other.append("f64 islands or warm-started rotations")
-    if press_specs:
-        other.append("press controllers")
-    if other:
+def check_sharded(mesh, matvec_plan, state) -> None:
+    """What the element-sharded step (newton_step with a `comm`) refuses;
+    it runs everything else that the single-device step runs, as the JAX
+    package's shard_simulation + newton_step does.
+
+    A StencilPlan raises NotImplementedError: the JAX package shards the
+    mesh and leaves the plan whole, so its sharded lattice body is the
+    single-device step on every device; the port's sharded grid step is
+    the I-slab step of parallel/stencil_shard.py. A shell's rest normals,
+    a rod's rest frames and lengths and warm-started rotations are per
+    element but not padded by the JAX package (its sharded step then fails
+    on broadcasting); parallel/sharding.py raises ValueError when their
+    element count does not divide by the ranks, so they reach this step
+    only whole. The mesh's incidence plan and the banded plan must be the
+    rank's from parallel/sharding.py, whose sums are followed by the
+    comm's psum (their `reduce`); ValueError otherwise."""
+    if isinstance(matvec_plan, stmod.StencilPlan):
         raise NotImplementedError(
-            "the element-sharded step (newton_step with a comm) covers the "
-            "generic body with pcg or pcg-block-jacobi on 3D tets; not "
-            f"{', '.join(other)}: contact runs on parallel/vp_step.py, a "
-            "stencil plan on parallel/stencil_shard.py")
+            "a StencilPlan with a comm: the element-sharded step shards the "
+            "mesh and would hold the whole lattice on every rank; the grid's "
+            "sharded step is parallel/stencil_shard.py")
+    if mesh.plan.reduce is None or (matvec_plan is not None
+                                    and matvec_plan.reduce is None):
+        raise ValueError("a plan whose sums are not summed over the ranks: "
+                         "shard the mesh and the banded plan with "
+                         "parallel/sharding.py")
+    per_elem = {"rest_normal": mesh.rest_normal,
+                "rod_frames": mesh.rod_frames, "rod_L": mesh.rod_L,
+                "R": state.R if state.R.shape[0] else None}
+    for name, t in per_elem.items():
+        if t is not None and t.shape[0] != mesh.nelem:
+            raise ValueError(
+                f"{name} holds {t.shape[0]} rows for {mesh.nelem} elements: "
+                "shard it with parallel/sharding.py")
 
 
 def newton_step(
@@ -509,12 +517,17 @@ def newton_step(
     broadphase).
 
     `comm` (parallel/comm.py) makes this the element-sharded step of one
-    rank (parallel/sharding.py): `mesh` and `state` hold the rank's slice of
-    the elements and the whole vertex arrays, and every element-to-vertex
-    sum (the inertia gradient, the rhs, the diagonal blocks, the CG
-    matvec), the merit's element energies and the coarse space's pair sums
-    are followed by comm.psum; the Newton decrement's ds part by
-    comm.pmax. check_sharded says what it covers."""
+    rank (parallel/sharding.py): `mesh`, `state` and a banded plan hold the
+    rank's slice of the elements and the whole vertex arrays. Every
+    element-to-vertex sum (over the mesh's incidence plan or the banded
+    plan, which this step gives comm.psum as their `reduce`), the merit's
+    element energies, the coarse space's pair sums and the element blocks
+    of the full-system paths' dot products are followed by comm.psum, the
+    element maxima (the Newton decrement's ds part, the Laplacian scale)
+    by comm.pmax. The terms over vertices and contact frames (the mass
+    diagonal, press forces, every contact term, the broadphase's frames,
+    the coarse contact blocks) are every rank's whole and are added once,
+    after the sum. check_sharded says what it refuses."""
     solver = check_supported(config)
     if solver in HOST_SOLVERS:
         raise ValueError(
@@ -527,9 +540,10 @@ def newton_step(
     # f64 islands for the cancellation-limited pieces
     hp = config.rhs_precision == "float64" and dtype != torch.float64
     check_state(solver, config, have_frames, gs_plan, hp)
+    reduce = None
     if comm is not None:
-        check_sharded(config, solver, mesh, matvec_plan, gs_plan, have_frames,
-                      hp, config.rotation_warm_start, press_specs)
+        check_sharded(mesh, matvec_plan, state)
+        reduce = comm.psum
     dt = bdfmod.bdf_dt(state.bdf)
     h2 = dt * dt
     outer = config.outer_steps
@@ -550,14 +564,14 @@ def newton_step(
 
     def assemble(contrib):
         """(E, k, ...) corner contributions -> (nv, ...), in a fixed order
-        (and over the ranks, in rank order, with a comm)."""
-        out = opmod.assemble(mesh, matvec_plan, contrib)
-        return out if comm is None else comm.psum(out)
+        (and over the ranks, in rank order, with a comm: the plans'
+        `reduce`)."""
+        return opmod.assemble(mesh, matvec_plan, contrib)
 
     def total_energy(*args, **kw):
         """_total_energy, summed over the ranks with a comm."""
         e = _total_energy(*args, **kw)
-        return e if comm is None else comm.psum(e)
+        return e if reduce is None else reduce(e)
 
     target = disp.target(mesh, bdf, blend=config.inertia_blend_factor)
 
@@ -626,7 +640,7 @@ def newton_step(
             Ac = coarsemod.coarse_matrix(
                 mesh, coarse,
                 ms.update(mesh, state.x, state.s, dt) if use_mixed else None,
-                contact0, reduce=None if comm is None else comm.psum)
+                contact0, reduce=reduce)
             if config.coarse_inverse_method == "newton-schulz":
                 return coarsemod.coarse_inverse_ns(
                     Ac, state.precond if cached else None
@@ -804,7 +818,7 @@ def newton_step(
                     use_mixed=use_mixed, use_vanilla=use_vanilla, cf=cf,
                     cc=cc_hp if use_contact else None, dd=cdd64, cla=cla64,
                     cact=cact, dhat=dhat, kappa=kappa,
-                    ee_mollifier=config.ee_mollifier)
+                    ee_mollifier=config.ee_mollifier, reduce=reduce)
                 # --- merit at the base point (the stateless polar)
                 E64 = merit(0.0)
                 E = E64.to(dtype)
@@ -870,6 +884,8 @@ def newton_step(
             # (M + kL)^{-1} by Chebyshev, k = h^2 * the largest stretch
             # eigenvalue (coeffs.max_evals carry the h^2)
             k_lap = torch.max(coeffs.max_evals)
+            if comm is not None:
+                k_lap = comm.pmax(k_lap)
             ml_inv = lapmod.build_ml_preconditioner(
                 mesh, GwL, k_lap, lap_lmax_m, lap_lmax_l,
                 degree=config.lap_cheby_degree, plan=matvec_plan)
@@ -902,8 +918,6 @@ def newton_step(
                     mesh.free_mask[:, None]
             elif matvec_plan is None:
                 out = opmod.element_matvec(mesh, p, coeffs, vcc)
-                if comm is not None:
-                    out = comm.psum(out)
             else:
                 out = opmod.banded_matvec(mesh, matvec_plan, p, coeffs, vcc)
             if contact_matvec is not None:
@@ -946,22 +960,25 @@ def newton_step(
                 Mk = admmmod.admm_preconditioner(
                     mesh, coeffs, rho_scale=config.admm_rho_scale,
                     sweeps=config.admm_precond_sweeps,
-                    inner_iters=config.admm_inner_iters, cf=kkt_cf, cc=cc)
+                    inner_iters=config.admm_inner_iters, cf=kkt_cf, cc=cc,
+                    reduce=reduce)
             else:
                 Mk = mrmod.kkt_block_diag_preconditioner(mesh, coeffs,
                                                          cf=kkt_cf, cc=cc)
             return mrmod.minres(Aop, rhs, tuple(torch.zeros_like(r) for r in rhs),
                                 max_iters=config.max_iterative_solver_iters,
-                                tol=config.itr_tol, Minv=Mk)
+                                tol=config.itr_tol, Minv=Mk,
+                                dot=mrmod.kkt_dot(reduce))
         if solver == "admm":
             return admmmod.solve_admm(
                 mesh, coeffs, rhs, rho_scale=config.admm_rho_scale,
                 max_iters=config.max_iterative_solver_iters,
                 tol=config.itr_tol, inner_iters=config.admm_inner_iters,
-                cf=kkt_cf, cc=cc)
+                cf=kkt_cf, cc=cc, reduce=reduce)
         out = dualmod.solve_dual(mesh, coeffs, rhs,
                                  max_iters=config.max_iterative_solver_iters,
-                                 tol=config.itr_tol, cf=kkt_cf, cc=cc)
+                                 tol=config.itr_tol, cf=kkt_cf, cc=cc,
+                                 reduce=reduce)
         return out[:-2], out[-2], out[-1]
 
     if body_kind in ("grid", "lattice_cg"):

@@ -24,6 +24,17 @@ device's coefficient update, waited for; 'assemble'; 'factor_solve'; and
 (nnz of A or S, the IC shift, the AMG levels). The stages run under
 profiler spans `newton.update`, `newton.host_assemble`,
 `newton.host_solve` and `newton.line_search`.
+
+With a `comm` this is the element-sharded host step of one rank
+(parallel/sharding.py): the device's sums and the merit's element
+energies are summed over the ranks as in newton_step, the rank's element
+coefficients are gathered in rank order into the whole mesh's (the
+padding dropped), and rank 0 alone assembles the host system over the
+unsharded mesh (`whole_mesh`, which sharding.shard_scene keeps), which is
+then the single-device one bit for bit, and solves it; its solution
+reaches the other ranks through comm.psum of (solution, 0, ..., 0), which
+adds only zeros and so hands every rank rank 0's bits. One host solve,
+not one a rank: the ranks of one card share its host's cores.
 """
 
 from __future__ import annotations
@@ -91,6 +102,33 @@ def _sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
+def _amax(t, comm):
+    """The largest |t| over an element array (and over the ranks)."""
+    m = t.abs().amax()
+    return m if comm is None else comm.pmax(m)
+
+
+def _gather_coeffs(c, gather):
+    """The stretch coefficients' element fields of the whole mesh, from
+    each rank's (the fields the host systems read)."""
+    return dataclasses.replace(c, **{f: gather(getattr(c, f))
+                                     for f in ("G", "H", "Hinv", "g")})
+
+
+def _pack(sol) -> np.ndarray:
+    """(dx, ds, dl, iterations) as one float64 vector."""
+    dx, ds, dl, it = sol
+    return np.concatenate([np.asarray(dx, np.float64).reshape(-1),
+                           np.asarray(ds, np.float64).reshape(-1),
+                           np.asarray(dl, np.float64).reshape(-1), [it]])
+
+
+def _unpack(v, xshape, eshape):
+    nx, ne = int(np.prod(xshape)), int(np.prod(eshape))
+    return (v[:nx].reshape(xshape), v[nx:nx + ne].reshape(eshape),
+            v[nx + ne:nx + 2 * ne].reshape(eshape), int(v[-1]))
+
+
 def newton_step_direct(
     mesh: meshmod.MeshData,
     config: SimConfig,
@@ -98,10 +136,14 @@ def newton_step_direct(
     state: newtonmod.SimState,
     press_specs: Tuple[pressmod.PressSpec, ...] = (),
     matvec_plan: opmod.BandedPlan | None = None,
+    comm=None,
+    whole_mesh: meshmod.MeshData | None = None,
 ) -> newtonmod.SimState:
     """One implicit BDF timestep with a host sparse solve per Newton
     iteration. `matvec_plan` (a banded plan) sends the device's vertex sums
-    through K4 instead of K2. Contact runs over `state.contact`."""
+    through K4 instead of K2. Contact runs over `state.contact`. `comm`
+    and the unsharded `whole_mesh` make it the element-sharded step of one
+    rank (the module's docstring)."""
     solver = factory.resolve_solver(config.solver)
     if solver not in newtonmod.HOST_SOLVERS:
         raise ValueError(f"'{solver}' is an on-device path (newton_step)")
@@ -128,6 +170,24 @@ def newton_step_direct(
     use_friction = "friction" in config.variables and C > 0
     dhat, kappa = config.dhat, config.kappa
     bdf = state.bdf
+    if comm is not None:
+        from mixedfem_tpu_torch.parallel import sharding
+
+        newtonmod.check_sharded(mesh, matvec_plan, state)
+        if whole_mesh is None:
+            raise ValueError("the element-sharded host step assembles over "
+                             "the unsharded mesh: pass whole_mesh")
+        whole, nelem = whole_mesh, whole_mesh.nelem
+
+        def gather(t):
+            return sharding.gather_elements(comm, t, nelem)
+
+        def from_rank0(make, like):
+            """make() on rank 0, zeros of `like`'s shape elsewhere, summed
+            over the ranks: rank 0's bits on every rank."""
+            out = make() if comm.rank == 0 else np.zeros_like(like)
+            t = comm.psum(torch.as_tensor(np.ascontiguousarray(out), device=dev))
+            return t.cpu().numpy()
 
     if press_specs:
         press_ext = torch.zeros_like(state.x)
@@ -189,39 +249,72 @@ def newton_step_direct(
         if solver == "amgcl":
             # the dual-condensed flow: S dlam = b by AMG-preconditioned CG
             # on the host, then the dual recovery of (dx, ds)
-            dx_np, ds_np, dl_np, lin_iters = amgmod.solve_dual_amg(
-                mesh, coeffs, rhs_kkt, config.itr_tol,
-                config.max_iterative_solver_iters, stage=_Stage,
-                system=LAST_SYSTEM)
+            def solve_amg(m, c, r):
+                return amgmod.solve_dual_amg(
+                    m, c, r, config.itr_tol,
+                    config.max_iterative_solver_iters, stage=_Stage,
+                    system=LAST_SYSTEM)
+
+            if comm is None:
+                dx_np, ds_np, dl_np, lin_iters = solve_amg(mesh, coeffs,
+                                                           rhs_kkt)
+            else:
+                gc = _gather_coeffs(coeffs, gather)
+                grhs = (rhs_kkt[0],) + tuple(gather(r) for r in rhs_kkt[1:])
+                packed = from_rank0(
+                    lambda: _pack(solve_amg(whole, gc, grhs)),
+                    np.zeros(rhs_kkt[0].numel() + 2 * gc.g.numel() + 1))
+                dx_np, ds_np, dl_np, lin_iters = _unpack(
+                    packed, rhs_kkt[0].shape, gc.g.shape)
+                # the rank's slice of the element solution, padded
+                pad = sharding.element_padding(nelem, comm.size)
+                ds_np, dl_np = (sharding.slice_rank(
+                    torch.as_tensor(a), pad, comm.rank, comm.size).numpy()
+                    for a in (ds_np, dl_np))
             dx = meshmod.project_free(
                 mesh, torch.tensor(dx_np, dtype=dtype, device=dev))
             ds = torch.tensor(ds_np, dtype=dtype, device=dev)
             la_new = la + torch.tensor(dl_np, dtype=dtype, device=dev)
-            dec = max(float(dx.abs().amax()), float(ds.abs().amax()))
+            dec = max(float(dx.abs().amax()), float(_amax(ds, comm)))
         else:
-            with _Stage("assemble"):
-                contact_blocks = ((frames_real, cc.Gx, cc.H, cc.active)
-                                  if use_contact else None)
-                A = directmod.assemble_condensed(
-                    mesh, coeffs, contact=contact_blocks, v_coeffs=vcoeffs,
-                    frame_hessians=frame_hessians)
-                b_np = directmod.host(b).astype(np.float64).reshape(-1)
-            with _Stage("factor_solve"):
-                if solver == "pcg-ic":
-                    M = directmod.ICholPreconditioner(A)
-                    dx_np, lin_iters = directmod.solve_ic_pcg(
-                        A, b_np, config.itr_tol,
-                        config.max_iterative_solver_iters, M=M)
-                    shift = M.shift
-                else:
-                    dx_np, lin_iters, shift = directmod.solve_direct(A, b_np), 1, None
-            LAST_SYSTEM.update(nnz=A.nnz, shift=shift, levels=None)
+            contact_blocks = ((frames_real, cc.Gx, cc.H, cc.active)
+                              if use_contact else None)
+            b_np = directmod.host(b).astype(np.float64).reshape(-1)
+
+            def solve_condensed(m, c, vc):
+                with _Stage("assemble"):
+                    A = directmod.assemble_condensed(
+                        m, c, contact=contact_blocks, v_coeffs=vc,
+                        frame_hessians=frame_hessians)
+                with _Stage("factor_solve"):
+                    if solver == "pcg-ic":
+                        M = directmod.ICholPreconditioner(A)
+                        dx_np, lin_iters = directmod.solve_ic_pcg(
+                            A, b_np, config.itr_tol,
+                            config.max_iterative_solver_iters, M=M)
+                        shift = M.shift
+                    else:
+                        dx_np, lin_iters, shift = (
+                            directmod.solve_direct(A, b_np), 1, None)
+                LAST_SYSTEM.update(nnz=A.nnz, shift=shift, levels=None)
+                return dx_np, lin_iters
+
+            if comm is None:
+                dx_np, lin_iters = solve_condensed(mesh, coeffs, vcoeffs)
+            else:
+                gc = None if coeffs is None else _gather_coeffs(coeffs, gather)
+                gv = None if vcoeffs is None else dataclasses.replace(
+                    vcoeffs, H=gather(vcoeffs.H))
+                packed = from_rank0(
+                    lambda: np.append(*solve_condensed(whole, gc, gv)),
+                    np.zeros(b_np.size + 1))
+                dx_np, lin_iters = packed[:-1], int(packed[-1])
             dx = meshmod.project_free(mesh, torch.tensor(
                 dx_np.reshape(mesh.nv, mesh.dim), dtype=dtype, device=dev))
             # the local recovery (SystemMatrixPD::post_solve)
             if use_mixed:
                 ds, la_new = ms.local_solve(mesh, coeffs, s, dx)
-                dec = max(float(dx.abs().amax()), float(ds.abs().amax()))
+                dec = max(float(dx.abs().amax()), float(_amax(ds, comm)))
             else:
                 ds, la_new = torch.zeros_like(s), la
                 dec = float(dx.abs().amax())
@@ -239,6 +332,8 @@ def newton_step_direct(
                 E = newtonmod._total_energy(
                     mesh, bdf, h2, x_t, s_t, la_new, use_mixed=use_mixed,
                     use_vanilla=use_vanilla)
+                if comm is not None:
+                    E = comm.psum(E)
                 if use_contact:
                     E = E + newtonmod.mixed_contact_merit(
                         cf, x_t, cd_t, cact_new, cla_new, dhat, kappa,

@@ -71,8 +71,7 @@ def dryrun_rank(comm) -> dict:
     out = {}
     # (1) the element-sharded step
     mesh, config, state, _ = _build_sim(4, 2, 2, dev)
-    lmesh, lstate, _ = sharding.shard_simulation(mesh, state, comm.rank,
-                                                 comm.size)
+    lmesh, lstate, _ = sharding.shard_simulation(mesh, state, comm)
     st = newton.newton_step(lmesh, config, (), lstate, comm=comm)
     out["element_sharded"] = _moved(st.x, state.x, "element-sharded step")
 

@@ -13,6 +13,7 @@ comm's (parallel/comm.py).
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 import numpy as np
@@ -93,8 +94,8 @@ def element_sharded_steps(comm, mesh_np, coarse_np, config, x0, v0,
     state = newton.init_state(mesh, config, (), x0,
                               torch.tensor(v0, dtype=dt, device=dev))
     E = mesh.nelem
-    lmesh, lstate, lcoarse = sharding.shard_simulation(
-        mesh, state, comm.rank, comm.size, coarse)
+    lmesh, lstate, lcoarse = sharding.shard_simulation(mesh, state, comm,
+                                                       coarse)
     out = []
     for k in range(warmup + steps):
         lstate, fig = _timed(comm, lambda: newton.newton_step(
@@ -110,6 +111,172 @@ def element_sharded_steps(comm, mesh_np, coarse_np, config, x0, v0,
             energy=lstate.stats.energy[:it].cpu().numpy(),
             decrement=float(lstate.stats.decrement[it - 1]), **fig))
     return out
+
+
+def build_simulation(mesh_np, config, x0, v0, dev, coarse_np=None,
+                     banded: bool = False, gs: bool = False, press=(),
+                     power_v0=None):
+    """A Simulation (io/scene.py) of the whole mesh on `dev` from host
+    values: the mesh dict (convert.py), a SimConfig, the start (x0, v0),
+    and optionally a coarse space dict, a banded plan (`banded`), the
+    vertex coloring of 'gauss-seidel' (`gs`), press controllers (pairs of
+    convert.py's spec and state dicts) and the Laplacian preconditioner's
+    power-iteration start vector."""
+    from mixedfem_tpu_torch.io.scene import Simulation
+    from mixedfem_tpu_torch.solvers import gauss_seidel as gsmod
+    from mixedfem_tpu_torch.solvers import operator as opmod
+
+    dt = _DTYPES[config.dtype]
+    mesh, _, coarse = convert.from_jax_numpy(mesh_np, None, coarse_np,
+                                             dtype=dt, device=dev)
+    specs = tuple(convert.press_spec_from_numpy(p, dt, dev) for p, _ in press)
+    pstates = tuple(convert.press_state_from_numpy(st) for _, st in press)
+    state = newton.init_state(mesh, config, (),
+                              torch.tensor(x0, dtype=dt, device=dev),
+                              torch.tensor(v0, dtype=dt, device=dev),
+                              press_states=pstates)
+    if power_v0 is not None:
+        state.power_v0 = convert.power_start_from_numpy(power_v0, dt, dev)
+    gs_plan = None
+    if gs:
+        gs_plan = gsmod.build_gs_plan(mesh.T.cpu().numpy(), mesh.nv, dtype=dt,
+                                      device=dev)
+    return Simulation(
+        mesh=mesh, config=config, bc_specs=(), state=state, dim=mesh.dim,
+        obj_slices=[], coarse=coarse, press_specs=specs,
+        matvec_plan=opmod.build_banded_plan(mesh) if banded else None,
+        gs_plan=gs_plan)
+
+
+def _frames_np(state) -> np.ndarray:
+    """The real candidate frames of a state's contact set, (n, 4) host."""
+    return state.contact.real()[0].cpu().numpy()
+
+
+def step_record(sim, E: int, fig: dict, comm=None) -> dict:
+    """One step's record of a Simulation (a rank's with `comm`): the
+    positions, the stretch gathered over the ranks, the Newton and solver
+    counts, the merit at the base point and the recorded vanilla gradient
+    norm of every Newton iteration, the decrement, the most active contact frames of a Newton iteration, the
+    candidate frames, the retries and the figures (_timed)."""
+    st = sim.state
+    it = st.stats.iterations
+    s = st.s if comm is None else sharding.gather_elements(comm, st.s, E)
+    return dict(x=st.x.cpu().numpy(), s=s.cpu().numpy(), iterations=it,
+                solver_iters=st.stats.solver_iters[:it].cpu().numpy(),
+                energy=st.stats.energy[:it].cpu().numpy(),
+                vanilla_grad=st.stats.vanilla_grad[:it].cpu().numpy(),
+                decrement=float(st.stats.decrement[it - 1]),
+                active=int(st.stats.active_frames[:it].max()),
+                frames=_frames_np(st), retries=sim.retries, **fig)
+
+
+class LineSearchTrace:
+    """Every line search of the on-device steps run inside it
+    (newton._line_search wrapped, for a diagnosis): per search the base
+    merit E, the acceptance threshold, the CCD bound alpha0, each
+    (alpha, merit(alpha)) tried and the (alpha, accepted) it returned.
+    The merit values are the ones the search computes; none is added."""
+
+    def __init__(self):
+        self.records = []
+
+    def __enter__(self):
+        self._search = search = newton._line_search
+
+        def traced(E, eps_E, ls_iters, merit, alpha0=1.0):
+            tried = []
+
+            def logged(a):
+                m = merit(a)
+                tried.append((float(a), float(m)))
+                return m
+
+            alpha, accept = search(E, eps_E, ls_iters, logged, alpha0)
+            thresh = E + eps_E * E.abs() if eps_E else E
+            self.records.append(dict(E=float(E), thresh=float(thresh),
+                                     alpha0=float(alpha0), tried=tried,
+                                     alpha=float(alpha), accept=accept))
+            return alpha, accept
+
+        newton._line_search = traced
+        return self
+
+    def __exit__(self, *exc):
+        newton._line_search = self._search
+
+    def take(self, sim) -> list:
+        """The records since the last take, each with its Newton
+        iteration's decrement, CG count and error, active frames and least
+        distance from `sim`'s last step."""
+        st = sim.state.stats
+        # a contact step re-run with a wider margin searched before too
+        recs = self.records[len(self.records) - st.iterations:]
+        self.records = []
+        for i, r in enumerate(recs):
+            r.update(decrement=float(st.decrement[i]),
+                     cg=int(st.solver_iters[i]),
+                     cg_err=float(st.solver_error[i]),
+                     active=int(st.active_frames[i]),
+                     min_distance=float(st.min_distance[i]))
+        return recs
+
+
+def _sim_steps(comm, sim, steps: int, warmup: int, trace: bool = False):
+    """`warmup` then `steps` Simulation.step calls of `sim` (a rank's
+    share of it, sharding.shard_scene, with a comm): per timed step
+    step_record's dict, its `broadphase_ms` the step's own, and with
+    `trace` its LineSearchTrace records under 'line_search'."""
+    E = sim.mesh.nelem
+    if comm is not None:
+        sim = sharding.shard_scene(sim, comm)
+    out = []
+    with (LineSearchTrace() if trace else contextlib.nullcontext()) as tr:
+        for k in range(warmup + steps):
+            bp0 = sim.broadphase_ms
+            if comm is None:
+                t0 = time.perf_counter()
+                sim.step()
+                _sync(sim.state.x.device)
+                fig = dict(ms=(time.perf_counter() - t0) * 1e3)
+            else:
+                _, fig = _timed(comm, sim.step)
+            searches = tr.take(sim) if trace else None
+            if k >= warmup:
+                rec = step_record(sim, E, fig, comm)
+                rec["broadphase_ms"] = sim.broadphase_ms - bp0
+                if trace:
+                    rec["line_search"] = searches
+                out.append(rec)
+    return out
+
+
+def simulation_steps(comm, mesh_np, config, x0, v0, steps: int,
+                     warmup: int = 0, trace: bool = False, device=None,
+                     **build):
+    """`warmup` then `steps` element-sharded Simulation.step calls of this
+    rank (parallel/sharding.py shard_scene over build_simulation(...,
+    **build)): the step of every solver, with contact (the broadphase
+    on every rank over the whole positions), the banded plan, the host
+    solvers and press controllers. Per timed step step_record's dict (with
+    `trace`, its line searches). With comm=None, the unsharded
+    Simulation.step on `device`."""
+    dev = comm.device if comm is not None else torch.device(device)
+    return _sim_steps(comm, build_simulation(mesh_np, config, x0, v0, dev,
+                                             **build), steps, warmup, trace)
+
+
+def scene_steps(comm, path: str, dim: int, dtype: str, steps: int,
+                warmup: int = 0, overrides=None):
+    """`warmup` then `steps` element-sharded Simulation.step calls of this
+    rank's share of the scene file `path` (io/scene.py load_scene on the
+    rank's device: on the card with its banded order, banded plan and
+    coarse space). Per timed step step_record's dict."""
+    from mixedfem_tpu_torch.io.scene import load_scene
+
+    sim = load_scene(path, dim=dim, dtype=dtype, overrides=overrides,
+                     device=comm.device)
+    return _sim_steps(comm, sim, steps, warmup)
 
 
 class _Frames:

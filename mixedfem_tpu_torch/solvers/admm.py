@@ -29,24 +29,34 @@ import torch
 
 from mixedfem_tpu_torch.mesh import mesh as meshmod
 from mixedfem_tpu_torch.ops import assembly, sym
-from mixedfem_tpu_torch.solvers import dual
+from mixedfem_tpu_torch.solvers import dual, minres
 from mixedfem_tpu_torch.solvers import pcg as pcgmod
 from mixedfem_tpu_torch.variables import mixed_stretch as ms
 
 
 def _admm_setup(mesh: meshmod.MeshData, c: ms.StretchCoeffs, *,
-                rho_scale: float, inner_iters: int, cf=None, cc=None):
+                rho_scale: float, inner_iters: int, cf=None, cc=None,
+                reduce=None):
     """The rhs-independent part of the iteration, built once per Newton
     iteration: rho, the jacobian products, the x-block operator and its
-    Jacobi diagonal, and the s/d-block inverses."""
+    Jacobi diagonal, and the s/d-block inverses. `reduce` (the
+    element-sharded step's comm.psum) sums the element means and the
+    element blocks of every norm over the ranks."""
     w = sym.sym_weights(mesh.dim, dtype=mesh.vols.dtype, device=mesh.device)
     vols = mesh.vols
     has_contact = cf is not None and cf.frames.shape[0] > 0
     act = cc.active if has_contact else None
 
     # rho auto-scaling (the JAX module's deviation 1)
-    hbar = torch.mean(vols[:, None, None] * torch.abs(c.H))
-    cbar = torch.mean(vols[:, None] ** 2 * (w * w)[None, :])
+    hv = vols[:, None, None] * torch.abs(c.H)
+    cv = vols[:, None] ** 2 * (w * w)[None, :]
+    if reduce is None:
+        hbar, cbar = torch.mean(hv), torch.mean(cv)
+    else:
+        # the means over every rank's elements, padding included
+        n = reduce(hv.new_tensor(float(vols.shape[0])))
+        hbar = reduce(torch.sum(hv)) / (n * hv[0].numel())
+        cbar = reduce(torch.sum(cv)) / (n * cv[0].numel())
     rho = rho_scale * hbar / torch.clamp(cbar, min=1e-30)
 
     def Bdx(dx):
@@ -88,6 +98,11 @@ def _admm_setup(mesh: meshmod.MeshData, c: ms.StretchCoeffs, *,
     Hs = vols[:, None, None] * c.H + rho * torch.einsum(
         "e,i,ij->eij", vols ** 2, w * w,
         torch.eye(N, dtype=vols.dtype, device=vols.device))
+    if reduce is not None:
+        # a padded element (zero volume) has Hs = 0: the identity keeps its
+        # rows zero
+        Hs = torch.where((vols > 0)[:, None, None], Hs,
+                         torch.eye(N, dtype=vols.dtype, device=vols.device))
     Hs_inv = torch.linalg.inv(Hs)
     hc_inv = None
     if has_contact:
@@ -100,6 +115,7 @@ def _admm_setup(mesh: meshmod.MeshData, c: ms.StretchCoeffs, *,
         w=w, vols=vols, has_contact=has_contact, act=act, rho=rho,
         Bdx=Bdx, BT=BT, Bc_dx=Bc_dx, BcT=BcT, Aop=Aop, Minv=Minv,
         Hs_inv=Hs_inv, hc_inv=hc_inv, Cs=Cs, inner_iters=inner_iters,
+        norm2=pcgmod.tdot if reduce is None else minres.kkt_dot(reduce),
     )
 
 
@@ -115,7 +131,7 @@ def _admm_body(S, rhs):
     else:
         b_x, b_s, b_l = rhs
 
-    bnorm = torch.sqrt(sum(torch.sum(b * b) for b in rhs))
+    bnorm = torch.sqrt(S["norm2"](rhs, rhs))
     safe_b = torch.where(bnorm > 0, bnorm, torch.ones_like(bnorm))
     zero_u = tuple(torch.zeros_like(b) for b in rhs)
 
@@ -145,28 +161,29 @@ def _admm_body(S, rhs):
             un = (xn, sn, ln, dn, lcn)
         else:
             un = (xn, sn, ln)
-        du = torch.sqrt(sum(torch.sum((a - b) * (a - b)) for a, b in zip(un, u)))
+        diff = tuple(a - b for a, b in zip(un, u))
+        du = torch.sqrt(S["norm2"](diff, diff))
         return un, it + 1, du / safe_b
 
     return body, zero_u, safe_b
 
 
 def _build_admm_iteration(mesh, c, rhs, *, rho_scale: float, inner_iters: int,
-                          cf=None, cc=None):
+                          cf=None, cc=None, reduce=None):
     S = _admm_setup(mesh, c, rho_scale=rho_scale, inner_iters=inner_iters,
-                    cf=cf, cc=cc)
+                    cf=cf, cc=cc, reduce=reduce)
     return _admm_body(S, rhs)
 
 
 def solve_admm(mesh: meshmod.MeshData, c: ms.StretchCoeffs, rhs, *,
                rho_scale: float = 3.0, max_iters: int = 100, tol: float = 1e-4,
-               inner_iters: int = 30, cf=None, cc=None):
+               inner_iters: int = 30, cf=None, cc=None, reduce=None):
     """ADMM solve of the KKT system whose rhs tuple comes from
     minres.kkt_rhs. Returns (u, iters, err), err = ||u_k - u_{k-1}|| /
-    ||b||."""
+    ||b||. `reduce` as in _admm_setup."""
     body, zero_u, safe_b = _build_admm_iteration(
         mesh, c, rhs, rho_scale=rho_scale, inner_iters=inner_iters,
-        cf=cf, cc=cc)
+        cf=cf, cc=cc, reduce=reduce)
     u, it, err = zero_u, 0, torch.full_like(safe_b, torch.inf)
     while it < max_iters and bool(err > tol):
         u, it, err = body((u, it, err))
@@ -175,12 +192,14 @@ def solve_admm(mesh: meshmod.MeshData, c: ms.StretchCoeffs, rhs, *,
 
 def admm_preconditioner(mesh: meshmod.MeshData, c: ms.StretchCoeffs, *,
                         rho_scale: float = 3.0, sweeps: int = 2,
-                        inner_iters: int = 10, cf=None, cc=None):
+                        inner_iters: int = 10, cf=None, cc=None,
+                        reduce=None):
     """`sweeps` ADMM sweeps from zero as the MINRES preconditioner
     (minres-indefinite-admm): a fixed operator of r, only approximately
-    linear (the inner x-solve is truncated), as in the reference."""
+    linear (the inner x-solve is truncated), as in the reference. `reduce`
+    as in _admm_setup."""
     S = _admm_setup(mesh, c, rho_scale=rho_scale, inner_iters=inner_iters,
-                    cf=cf, cc=cc)
+                    cf=cf, cc=cc, reduce=reduce)
 
     def Minv(r):
         body, zero_u, safe_b = _admm_body(S, r)

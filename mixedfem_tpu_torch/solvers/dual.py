@@ -57,7 +57,8 @@ def _Cct_apply(mesh, cf, cc, dlc):
 
 
 def solve_dual(mesh: meshmod.MeshData, c: StretchCoeffs, rhs_kkt,
-               max_iters: int = 500, tol: float = 1e-8, cf=None, cc=None):
+               max_iters: int = 500, tol: float = 1e-8, cf=None, cc=None,
+               reduce=None):
     """Solve the dual-condensed system for rhs_kkt = (r_x, r_s, r_l[, r_d,
     r_lc]) from minres.kkt_rhs. Returns (dx, ds, dlam[, dd, dlc], iters,
     rel).
@@ -67,20 +68,24 @@ def solve_dual(mesh: meshmod.MeshData, c: StretchCoeffs, rhs_kkt,
       [ Cs Ml^-1 Cs^T + W Hv^-1 W     Cs Ml^-1 Cc^T          ] [dl ]
       [ Cc Ml^-1 Cs^T                 Cc Ml^-1 Cc^T + Hc^-1  ] [dlc]
 
-    and is solved by pcg_tree; identity rows on the inactive frames."""
+    and is solved by pcg_tree; identity rows on the inactive frames.
+    `reduce` (the element-sharded step's comm.psum) sums the dot products
+    of the element multipliers over the ranks; the contact multipliers'
+    are every rank's whole."""
     has_contact = cf is not None and cf.frames.shape[0] > 0
     if has_contact:
         r_x, r_s, r_l, r_d, r_lc = rhs_kkt
     else:
         r_x, r_s, r_l = rhs_kkt
     w = _weights(mesh)
+    vols = meshmod.safe_vols(mesh)
     ml_inv = torch.where(mesh.mass_lumped > 0, 1.0 / mesh.mass_lumped, 0.0)
 
     def Ml_inv(v):
         return meshmod.project_free(mesh, v * ml_inv[:, None])
 
     def Hv_inv(v):
-        return torch.einsum("eij,ej->ei", c.Hinv, v) / mesh.vols[:, None]
+        return torch.einsum("eij,ej->ei", c.Hinv, v) / vols[:, None]
 
     vw = mesh.vols[:, None] * w  # the KKT s-row weight W = vol * Sym
 
@@ -89,7 +94,7 @@ def solve_dual(mesh: meshmod.MeshData, c: StretchCoeffs, rhs_kkt,
     diag1 = torch.einsum(
         "eikr,eikr,ek,e->ei", c.G, c.G, minv_e, mesh.vols ** 2
     ) * (w * w)[None, :]
-    hinv_diag = torch.diagonal(c.Hinv, dim1=-2, dim2=-1) / mesh.vols[:, None]
+    hinv_diag = torch.diagonal(c.Hinv, dim1=-2, dim2=-1) / vols[:, None]
     diag = torch.clamp(diag1 + vw * vw * hinv_diag, min=1e-30)
 
     if not has_contact:
@@ -102,6 +107,8 @@ def solve_dual(mesh: meshmod.MeshData, c: StretchCoeffs, rhs_kkt,
         dl, it, rel = pcgmod.pcg(
             S, b_dual, torch.zeros_like(b_dual), lambda r: r / diag,
             max_iters=max_iters, tol=tol,
+            dot=pcgmod.dot if reduce is None else
+            (lambda a, b: reduce(pcgmod.dot(a, b))),
         )
         dx = Ml_inv(r_x - _Ct_apply(mesh, c, dl))
         ds = Hv_inv(r_s + vw * dl)
@@ -132,6 +139,8 @@ def solve_dual(mesh: meshmod.MeshData, c: StretchCoeffs, rhs_kkt,
     (dl, dlc), it, rel = pcgmod.pcg_tree(
         S2, (b_l, b_lc), (torch.zeros_like(b_l), torch.zeros_like(b_lc)),
         Minv2, max_iters=max_iters, tol=tol,
+        dot=pcgmod.tdot if reduce is None else
+        (lambda u, v: reduce(pcgmod.dot(u[0], v[0])) + pcgmod.dot(u[1], v[1])),
     )
     dx = Ml_inv(r_x - _Ct_apply(mesh, c, dl) - _Cct_apply(mesh, cf, cc, dlc))
     ds = Hv_inv(r_s + vw * dl)

@@ -112,6 +112,7 @@ def kkt_block_diag_preconditioner(mesh: meshmod.MeshData,
     w = sym.sym_weights(mesh.dim, dtype=mesh.vols.dtype, device=mesh.device)
     m_inv = torch.where(mesh.mass_lumped > 0, 1.0 / mesh.mass_lumped, 1.0)
     has_contact = _has_contact(cf)
+    vols = meshmod.safe_vols(mesh)
 
     minv_e = m_inv[mesh.T]  # (E, k)
     L = torch.einsum(
@@ -132,7 +133,7 @@ def kkt_block_diag_preconditioner(mesh: meshmod.MeshData,
         else:
             r_x, r_s, r_l = u
         z_x = meshmod.project_free(mesh, r_x * m_inv[:, None])
-        z_s = torch.einsum("eij,ej->ei", c.Hinv, r_s) / mesh.vols[:, None]
+        z_s = torch.einsum("eij,ej->ei", c.Hinv, r_s) / vols[:, None]
         z_l = r_l / L
         if not has_contact:
             return (z_x, z_s, z_l)
@@ -141,17 +142,36 @@ def kkt_block_diag_preconditioner(mesh: meshmod.MeshData,
     return Minv
 
 
-def minres(A: Callable, b, x0, max_iters: int, tol: float, Minv=None):
+def kkt_dot(reduce=None):
+    """The dot product of KKT tuples (dx, ds, dl[, dd, dlc]): tdot, or on a
+    rank of the element-sharded step (`reduce` its comm.psum) the x and
+    contact blocks, which every rank holds whole, plus the sum over the
+    ranks of the element blocks (ds, dl)."""
+    if reduce is None:
+        return tdot
+
+    def dot(u, v):
+        parts = [torch.sum(a * b) for a, b in zip(u, v)]
+        out = parts[0] + reduce(parts[1] + parts[2])
+        for p in parts[3:]:
+            out = out + p
+        return out
+
+    return dot
+
+
+def minres(A: Callable, b, x0, max_iters: int, tol: float, Minv=None,
+           dot=tdot):
     """Preconditioned MINRES (Paige-Saunders) on tuples. Stops when the
     preconditioned residual norm phibar <= tol * beta1. Returns (x, iters,
-    rel_residual)."""
+    rel_residual). `dot` is the tuples' dot product (kkt_dot)."""
     if Minv is None:
         def Minv(r):
             return r
 
     r1 = taxpy(-1.0, A(tuple(x0)), b)
     y = Minv(r1)
-    beta1 = torch.sqrt(torch.clamp(tdot(r1, y), min=0.0))
+    beta1 = torch.sqrt(torch.clamp(dot(r1, y), min=0.0))
     safe_beta1 = torch.where(beta1 > 0, beta1, torch.ones_like(beta1))
     stop = tol * safe_beta1
     zero = torch.zeros_like(beta1)
@@ -168,12 +188,12 @@ def minres(A: Callable, b, x0, max_iters: int, tol: float, Minv=None):
         if it >= 1:
             safe_oldb = torch.where(oldb != 0, oldb, torch.ones_like(oldb))
             yn = taxpy(-(beta / safe_oldb), r1c, yn)
-        alfa = tdot(v, yn)
+        alfa = dot(v, yn)
         yn = taxpy(-(alfa / safe_b), r2c, yn)
         r1c, r2c = r2c, yn
         yc = Minv(r2c)
         oldb = beta
-        beta = torch.sqrt(torch.clamp(tdot(r2c, yc), min=0.0))
+        beta = torch.sqrt(torch.clamp(dot(r2c, yc), min=0.0))
 
         oldeps = epsln
         delta = cs * dbar + sn * alfa

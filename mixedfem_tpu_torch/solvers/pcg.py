@@ -18,7 +18,8 @@ from typing import Callable
 import torch
 
 
-def _dot(a, b):
+def dot(a, b):
+    """The dot product of two tensors (sum of the elementwise products)."""
     return torch.sum(a * b)
 
 
@@ -29,10 +30,12 @@ def pcg(
     Minv: Callable[[torch.Tensor], torch.Tensor],
     max_iters: int,
     tol: float,
+    dot=dot,
 ):
     """Solve A x = b. Returns (x, iters, rel_residual); convergence when
-    ||r||_2 <= tol ||b||_2."""
-    bnorm2 = _dot(b, b)
+    ||r||_2 <= tol ||b||_2. `dot` is the vectors' dot product (over the
+    ranks for a vector sliced over them, solvers/dual.py)."""
+    bnorm2 = dot(b, b)
     safe_b = torch.where(bnorm2 > 0, bnorm2, torch.ones_like(bnorm2))
     tol2 = (tol * tol) * safe_b
 
@@ -40,21 +43,21 @@ def pcg(
     r = b - A(x0)
     z = Minv(r)
     p = z
-    rz = _dot(r, z)
+    rz = dot(r, z)
     it = 0
-    while it < max_iters and bool(_dot(r, r) > tol2):
+    while it < max_iters and bool(dot(r, r) > tol2):
         Ap = A(p)
-        denom = _dot(p, Ap)
+        denom = dot(p, Ap)
         alpha = rz / torch.where(denom != 0, denom, torch.ones_like(denom))
         x = x + alpha * p
         r = r - alpha * Ap
         z = Minv(r)
-        rz_new = _dot(r, z)
+        rz_new = dot(r, z)
         beta = rz_new / torch.where(rz != 0, rz, torch.ones_like(rz))
         p = z + beta * p
         rz = rz_new
         it += 1
-    rel = torch.sqrt(_dot(r, r) / safe_b)
+    rel = torch.sqrt(dot(r, r) / safe_b)
     return x, it, rel
 
 
@@ -70,7 +73,7 @@ def pcg_fixed(
     the `iters` iterations runs, and those that start from a residual with
     ||r||_2 <= tol ||b||_2 change nothing (a converged mask on the
     device)."""
-    bnorm2 = _dot(b, b)
+    bnorm2 = dot(b, b)
     safe_b = torch.where(bnorm2 > 0, bnorm2, torch.ones_like(bnorm2))
     tol2 = (tol * tol) * safe_b
 
@@ -78,16 +81,16 @@ def pcg_fixed(
     r = b - A(x0)
     z = Minv(r)
     p = z
-    rz = _dot(r, z)
+    rz = dot(r, z)
     for _ in range(iters):
-        run = _dot(r, r) > tol2
+        run = dot(r, r) > tol2
         Ap = A(p)
-        denom = _dot(p, Ap)
+        denom = dot(p, Ap)
         alpha = rz / torch.where(denom != 0, denom, torch.ones_like(denom))
         x = torch.where(run, x + alpha * p, x)
         r_new = r - alpha * Ap
         z_new = Minv(r_new)
-        rz_new = _dot(r_new, z_new)
+        rz_new = dot(r_new, z_new)
         beta = rz_new / torch.where(rz != 0, rz, torch.ones_like(rz))
         p = torch.where(run, z_new + beta * p, p)
         r = torch.where(run, r_new, r)
@@ -105,11 +108,13 @@ def taxpy(alpha, u, v):
     return tuple(alpha * a + b for a, b in zip(u, v))
 
 
-def pcg_tree(A: Callable, b, x0, Minv: Callable, max_iters: int, tol: float):
+def pcg_tree(A: Callable, b, x0, Minv: Callable, max_iters: int, tol: float,
+             dot=tdot):
     """pcg on tuples of tensors (the coupled dual Schur system with
     contact, solvers/dual.py): ||r||_2 <= tol ||b||_2 over the stacked
-    vector. Returns (x, iters, rel_residual)."""
-    bnorm2 = tdot(b, b)
+    vector. Returns (x, iters, rel_residual). `dot` is the tuples' dot
+    product."""
+    bnorm2 = dot(b, b)
     safe_b = torch.where(bnorm2 > 0, bnorm2, torch.ones_like(bnorm2))
     tol2 = (tol * tol) * safe_b
 
@@ -117,21 +122,21 @@ def pcg_tree(A: Callable, b, x0, Minv: Callable, max_iters: int, tol: float):
     r = taxpy(-1.0, A(x), b)
     z = Minv(r)
     p = z
-    rz = tdot(r, z)
+    rz = dot(r, z)
     it = 0
-    while it < max_iters and bool(tdot(r, r) > tol2):
+    while it < max_iters and bool(dot(r, r) > tol2):
         Ap = A(p)
-        denom = tdot(p, Ap)
+        denom = dot(p, Ap)
         alpha = rz / torch.where(denom != 0, denom, torch.ones_like(denom))
         x = taxpy(alpha, p, x)
         r = taxpy(-alpha, Ap, r)
         z = Minv(r)
-        rz_new = tdot(r, z)
+        rz_new = dot(r, z)
         beta = rz_new / torch.where(rz != 0, rz, torch.ones_like(rz))
         p = taxpy(beta, p, z)
         rz = rz_new
         it += 1
-    rel = torch.sqrt(tdot(r, r) / safe_b)
+    rel = torch.sqrt(dot(r, r) / safe_b)
     return x, it, rel
 
 

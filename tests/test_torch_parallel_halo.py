@@ -66,41 +66,52 @@ def test_halo_matvec_matches_jax():
 
 
 def test_element_sharded_step_refusals():
-    """What the element-sharded step does not cover raises before any
-    collective: solvers other than pcg and pcg-block-jacobi, a matvec
-    plan, contact, f64 islands, warm-started rotations, the vanilla
-    stretch, 2D meshes."""
+    """The element-sharded step refuses two things, before any collective:
+    a StencilPlan (NotImplementedError pointing at
+    parallel/stencil_shard.py) and a per-element field that is not the
+    rank's slice (ValueError: the whole mesh's warm-started rotations on a
+    rank's slice of the elements). A plan that parallel/sharding.py did
+    not make, whose sums are not followed by the psum, raises ValueError.
+    What it refused before it covered them (other solvers, a banded plan,
+    contact, f64 islands, warm-started rotations, the vanilla stretch, 2D
+    meshes, shells and rods) passes its check."""
+    from mixedfem_tpu_torch.ops import assembly
     from mixedfem_tpu_torch.ops import stencil as tst
+    from mixedfem_tpu_torch.parallel import sharding
+    from mixedfem_tpu_torch.solvers import operator as top
     from mixedfem_tpu_torch.variables import mixed_collision as tmc
 
     mesh, V = small_beam(2, 1, 1)
     tm, ts, _ = port(mesh=mesh, state=make_state(mesh, JConfig(**CFG)))
     no_comm = object()   # the checks run before the comm is used
-
-    def refuses(match, config=None, state=ts, **kw):
-        with pytest.raises(NotImplementedError, match=match):
-            tnewton.newton_step(tm, config or TConfig(**CFG), (), state,
-                                comm=no_comm, **kw)
-
-    refuses("minres-kkt", TConfig(**dict(CFG, solver="minres-kkt")))
-    refuses("solver 'pcg-diag'", TConfig(**dict(CFG, solver="pcg-diag")))
     plan, _ = tst.build_stencil_plan(tm.T.numpy(), tm.nv, (3, 2, 2),
                                      device="cpu")
-    refuses("a matvec or Gauss-Seidel plan", matvec_plan=plan)
+    with pytest.raises(NotImplementedError, match="stencil_shard.py"):
+        tnewton.newton_step(tm, TConfig(**CFG), (), ts, comm=no_comm,
+                            matvec_plan=plan)
+    warm = TConfig(**dict(CFG, rotation_warm_start=True))
+    tsw = tnewton.init_state(tm, warm, (), tm.V0, torch.zeros_like(tm.V0))
+    def psum(t):
+        return t
+
+    half, _ = sharding.shard_mesh_data(tm, 0, 2, reduce=psum)
+    with pytest.raises(ValueError, match="R holds"):
+        tnewton.newton_step(half, warm, (), tsw, comm=no_comm)
+    with pytest.raises(ValueError, match="parallel/sharding.py"):
+        tnewton.newton_step(tm, TConfig(**CFG), (), ts, comm=no_comm)
     cf = tmc.contact_frames(np.array([[0, 1, 2, 3]]), np.array([0]),
                             np.array([1.0]), tm.nv, torch.float64, "cpu")
-    refuses("contact", TConfig(**dict(
-        CFG, mixed_variables=("mixed-stretch", "mixed-collision"))),
-        state=dataclasses.replace(ts, contact=cf))
-    refuses("islands", TConfig(**dict(CFG, dtype="float32",
-                                      rhs_precision="float64")),
-            state=dataclasses.replace(ts, x=ts.x.float()))
-    refuses("warm", TConfig(**dict(CFG, rotation_warm_start=True)))
-    refuses("variables", TConfig(**dict(CFG, variables=("stretch",))))
     V2, T2, kw2, _ = tri_arrays(4, 2)
     tm2 = tmesh.build_mesh_data(V2, T2, device="cpu", **kw2)
     ts2 = tnewton.init_state(tm2, TConfig(**CFG), (), tm2.V0,
                              torch.zeros_like(tm2.V0))
-    with pytest.raises(NotImplementedError, match="3D tets"):
-        tnewton.newton_step(tm2, TConfig(**CFG), (), ts2, comm=no_comm)
+    whole, _ = sharding.shard_mesh_data(tm, 0, 1, reduce=psum)
+    with pytest.raises(ValueError, match="parallel/sharding.py"):
+        tnewton.check_sharded(whole, top.build_banded_plan(tm), ts)
+    whole2, _ = sharding.shard_mesh_data(tm2, 0, 1, reduce=psum)
+    banded = assembly.with_reduce(top.build_banded_plan(tm), psum)
+    for m, p, st in ((whole, banded, ts),
+                     (whole, None, dataclasses.replace(ts, contact=cf)),
+                     (whole, None, tsw), (whole2, None, ts2)):
+        tnewton.check_sharded(m, p, st)
     assert len(jax.devices("cpu")) >= 2
